@@ -1,0 +1,167 @@
+"""The solver kernels' wrappers: the counterpart of
+``jpegqs_tpu/ops/pallas_solver.py``.
+
+Two kernels carry the q3/q4 main path (csrc/solver.cu):
+
+- ``idct_pix``: the pixel bootstrap (B1), the islow IDCT of every block;
+- ``solve_rebalance_pix``: one resident solver pass (B2): border lines
+  from the previous pass's pixels, the k=63..1 sweep, the AC rebalance
+  and the pixels of the result.
+
+A wrapper given CPU tensors runs the kernel's plain PyTorch version
+(ops/dct.py, ops/planar.py); given CUDA tensors it launches the kernel
+on the current stream or raises -- it never falls back.  ``LAUNCHES``
+counts kernel launches only (never plain-version calls), so a run can
+show that the main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..options import DIAGONALS
+from ..specref import make_solver_tables
+from . import _build
+from .dct import idct_islow
+from . import planar
+
+LAUNCHES = {"idct_pix": 0, "solve_rebalance_pix": 0}
+
+_TAB_CACHE = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nt_for(flags: int) -> int:
+    """Diff terms the sweep folds: without DIAGONALS the 98 diagonal
+    terms have zero weight and cannot change the fold, so they are
+    omitted."""
+    return 242 if (flags & DIAGONALS) else 144
+
+
+def solver_tables(flags: int, device) -> torch.Tensor:
+    """f32[64, NT] solver tables on ``device`` (cached)."""
+    nt = nt_for(flags)
+    key = (nt, str(torch.device(device)))
+    tab = _TAB_CACHE.get(key)
+    if tab is None:
+        host = np.ascontiguousarray(make_solver_tables(flags)[:, :nt])
+        tab = torch.from_numpy(host).to(device)
+        _TAB_CACHE[key] = tab
+    return tab
+
+
+def _is_cpu(*ts) -> bool:
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in ts}) == 1:
+        return False
+    raise ValueError(f"tensors must all lie on the CPU or on one CUDA "
+                     f"device, got {sorted(str(t.device) for t in ts)}")
+
+
+def _check(t, dtype, shape, name):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: need contiguous {dtype}{list(shape)}, "
+                         f"got {t.dtype}{list(t.shape)} "
+                         f"(contiguous={t.is_contiguous()})")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def idct_pix(coef):
+    """Pixel bootstrap: coef int32[64, B] -> pixels int32[64, B] (the
+    islow IDCT of every block; the coefficients are not changed)."""
+    B = coef.shape[1]
+    if _is_cpu(coef):
+        return idct_islow(coef.reshape(8, 8, B)).reshape(64, B)
+    _check(coef, torch.int32, (64, B), "coef")
+    lib = _build.load()
+    pix = torch.empty_like(coef)
+    with torch.cuda.device(coef.device):
+        err = lib.jq_idct_pix(coef.data_ptr(), pix.data_ptr(), B,
+                              torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "idct_pix")
+    LAUNCHES["idct_pix"] += 1
+    return pix
+
+
+def solve_rebalance_pix(coef, pix, div, x1, qshr, flags, do_rebalance, hb,
+                        wb, want_pix=True):
+    """One resident solver pass over all blocks of a component.
+
+    coef, pix int32[64, B] (pix: the previous pass's pixels, from which
+    the border lines are rebuilt); div/x1/qshr int32[64] from
+    make_quant_tables.  B may hold several hb x wb images back to back.
+    Returns (coef', pix') with pix' the IDCT of coef', or (coef', None)
+    when ``want_pix`` is false (the last pass)."""
+    B = coef.shape[1]
+    tab = solver_tables(flags, coef.device)
+    if _is_cpu(coef, pix, div, x1, qshr, tab):
+        if B != hb * wb:
+            raise ValueError("the plain version takes one image")
+        return planar.solve_rebalance_pix(coef, pix, div, x1, qshr, tab,
+                                          do_rebalance, hb, wb, want_pix)
+    _check(coef, torch.int32, (64, B), "coef")
+    _check(pix, torch.int32, (64, B), "pix")
+    for name, t in (("div", div), ("x1", x1), ("qshr", qshr)):
+        _check(t, torch.int32, (64,), name)
+    if hb < 1 or wb < 1 or B % (hb * wb):
+        raise ValueError(f"B={B} is not a multiple of hb*wb={hb * wb}")
+    lib = _build.load()
+    out = torch.empty_like(coef)
+    pix_out = torch.empty_like(pix) if want_pix else None
+    with torch.cuda.device(coef.device):
+        err = lib.jq_solve_rebalance_pix(
+            coef.data_ptr(), pix.data_ptr(), out.data_ptr(), _ptr(pix_out),
+            div.data_ptr(), x1.data_ptr(), qshr.data_ptr(), tab.data_ptr(),
+            tab.shape[1], B, hb, wb, int(bool(do_rebalance)),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "solve_rebalance_pix")
+    LAUNCHES["solve_rebalance_pix"] += 1
+    return out, pix_out
+
+
+def _canary_launch(name, out, *args):
+    lib = _build.load()
+    with torch.cuda.device(out.device):
+        err = getattr(lib, name)(*args,
+                                 torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name)
+    return out
+
+
+def canary_muladd(a, b, c):
+    """a*b + c on the card, built with the kernels' flags (CUDA only)."""
+    out = torch.empty_like(a)
+    return _canary_launch("jq_canary_muladd", out, a.data_ptr(),
+                          b.data_ptr(), c.data_ptr(), out.data_ptr(),
+                          a.numel())
+
+
+def canary_fold(terms):
+    """Left fold of terms f32[n, N] over n on the card (CUDA only)."""
+    n, N = terms.shape
+    out = torch.empty(N, dtype=torch.float32, device=terms.device)
+    return _canary_launch("jq_canary_fold", out, terms.data_ptr(),
+                          out.data_ptr(), n, N)
+
+
+def canary_divide(a, b):
+    """a / b on the card (CUDA only)."""
+    out = torch.empty_like(a)
+    return _canary_launch("jq_canary_divide", out, a.data_ptr(),
+                          b.data_ptr(), out.data_ptr(), a.numel())

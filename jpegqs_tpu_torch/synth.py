@@ -1,0 +1,121 @@
+"""Seeded synthetic JPEG coefficient images, built in numpy alone.
+
+No libjpeg is involved: a photo-like image (the generator of the test
+corpus, ``tests/util.synth_image``) goes through the JFIF RGB->YCbCr
+transform, 2x2 chroma averaging for 4:2:0, an orthonormal 8x8 DCT and
+quantization with the IJG standard tables scaled to the requested
+quality (jcparam.c semantics).  The result is a host.jpegio.JpegImage
+with the component geometry libjpeg would give the same image, so the
+engine sees exactly what a decoder would hand it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .host.jpegio import ComponentData, JpegImage, JCS_YCBCR
+
+JCS_GRAYSCALE = 1
+
+# IJG standard tables (ITU T.81 Annex K.1), natural order
+STD_LUMA = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61,
+    12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56,
+    14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77,
+    24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101,
+    72, 92, 95, 98, 112, 100, 103, 99], dtype=np.int64)
+STD_CHROMA = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99,
+    18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99,
+    47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32, dtype=np.int64)
+
+
+def synth_image(h, w, seed=0, color=False):
+    """Deterministic synthetic image with photo-like content: uint8
+    (h, w) gray or (h, w, 3) RGB (the "photo" kind of the test corpus
+    generator)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = (128 + 60 * np.sin(xx * 0.07 + np.sin(yy * 0.05) * 3)
+           + 40 * np.cos(yy * 0.11) + 15 * np.sin((xx + yy) * 0.21))
+    img += rng.normal(0, 4, (h, w))
+    img[(yy.astype(int) // 24 + xx.astype(int) // 31) % 5 == 0] += 55
+    g = np.clip(img, 0, 255).astype(np.uint8)
+    if not color:
+        return g
+    r = np.clip(img + 30 * np.sin(xx * 0.03), 0, 255).astype(np.uint8)
+    b = np.clip(img - 25 * np.cos(yy * 0.04), 0, 255).astype(np.uint8)
+    return np.stack([r, g, b], axis=-1)
+
+
+def quality_table(base, quality):
+    """jpeg_quality_scaling + jpeg_add_quant_table (force_baseline)."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    return np.clip((base * scale + 50) // 100, 1, 255).astype(np.uint16)
+
+
+def _dct_matrix():
+    n = np.arange(8)
+    m = np.cos((2 * n[None, :] + 1) * n[:, None] * np.pi / 16) * 0.5
+    m[0] *= np.sqrt(0.5)
+    return m
+
+
+def _plane_coefs(plane, hb, wb, qtbl):
+    """Level-shifted, edge-padded plane -> quantized int16[hb, wb, 64]."""
+    h, w = plane.shape
+    p = np.pad(plane.astype(np.float64) - 128.0,
+               ((0, hb * 8 - h), (0, wb * 8 - w)), mode="edge")
+    blocks = p.reshape(hb, 8, wb, 8).transpose(0, 2, 1, 3)
+    m = _dct_matrix()
+    dct = np.einsum("ux,abxy,vy->abuv", m, blocks, m, optimize=True)
+    q = qtbl.astype(np.float64).reshape(8, 8)
+    return np.clip(np.round(dct / q), -32768, 32767).astype(
+        np.int16).reshape(hb, wb, 64)
+
+
+def make_image(h, w, color=False, seed=0, quality=75):
+    """A JpegImage of the synthetic image: gray, or YCbCr 4:2:0."""
+    pix = synth_image(h, w, seed, color)
+    ceil = lambda a, b: -(-a // b)
+    if not color:
+        qt = quality_table(STD_LUMA, quality)
+        img = JpegImage(width=w, height=h, jpeg_color_space=JCS_GRAYSCALE,
+                        progressive=False, max_h_samp_factor=1,
+                        max_v_samp_factor=1)
+        hb, wb = ceil(h, 8), ceil(w, 8)
+        img.components.append(ComponentData(
+            component_id=1, h_samp_factor=1, v_samp_factor=1,
+            quant_tbl_no=0, width_in_blocks=wb, height_in_blocks=hb,
+            quantval=qt, coefs=_plane_coefs(pix, hb, wb, qt)))
+        return img
+    rgb = pix.astype(np.float64)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+
+    def down2(c):
+        c = np.pad(c, ((0, h % 2), (0, w % 2)), mode="edge")
+        return c.reshape(c.shape[0] // 2, 2, c.shape[1] // 2, 2).mean(
+            axis=(1, 3))
+
+    img = JpegImage(width=w, height=h, jpeg_color_space=JCS_YCBCR,
+                    progressive=False, max_h_samp_factor=2,
+                    max_v_samp_factor=2)
+    qy = quality_table(STD_LUMA, quality)
+    qc = quality_table(STD_CHROMA, quality)
+    planes = ((1, 2, qy, 0, y), (2, 1, qc, 1, down2(cb)),
+              (3, 1, qc, 1, down2(cr)))
+    for cid, samp, qt, tno, plane in planes:
+        hb, wb = ceil(h * samp, 16), ceil(w * samp, 16)
+        img.components.append(ComponentData(
+            component_id=cid, h_samp_factor=samp, v_samp_factor=samp,
+            quant_tbl_no=tno, width_in_blocks=wb, height_in_blocks=hb,
+            quantval=qt, coefs=_plane_coefs(np.round(plane), hb, wb, qt)))
+    return img

@@ -1,0 +1,107 @@
+"""The port stands alone: no JAX, nothing of jpegqs_tpu.
+
+A fresh interpreter imports every module of jpegqs_tpu_torch and
+chip_smoke and runs the engine on the CPU; neither ``jax`` nor
+``jpegqs_tpu`` may appear in sys.modules.  Also checks chip_smoke's
+golden digests (the SHA-256 of jpegqs_tpu's output planes that the card
+must reproduce) against the JAX package, and that chip_smoke fails
+without a card or without the repository.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+import jpegqs_tpu_torch
+from jpegqs_tpu import engine as jax_engine
+from jpegqs_tpu.host import jpegio as jax_jpegio
+from jpegqs_tpu.options import QsOptions as JaxOptions
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import sys
+import numpy as np
+import chip_smoke
+import jpegqs_tpu_torch
+from jpegqs_tpu_torch import cli, engine, options, specref, synth
+from jpegqs_tpu_torch.host import jpegio
+from jpegqs_tpu_torch.ops import _build, cuda_solver, dct, planar, quant
+case = chip_smoke.GOLDEN_CASES[2]
+res = jpegqs_tpu_torch.smooth(chip_smoke.golden_image(case),
+                              chip_smoke.golden_opts(case), device="cpu")
+assert chip_smoke.digest(res.coefs, res.stop) == chip_smoke.GOLDEN[case[0]]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "jpegqs_tpu"))
+print("FOREIGN", bad)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def test_port_imports_no_jax():
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                       capture_output=True, text=True, env=_env(),
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "FOREIGN []" in r.stdout, r.stdout
+
+
+def _to_jax_image(img):
+    out = jax_jpegio.JpegImage(
+        width=img.width, height=img.height,
+        jpeg_color_space=img.jpeg_color_space, progressive=img.progressive,
+        max_h_samp_factor=img.max_h_samp_factor,
+        max_v_samp_factor=img.max_v_samp_factor)
+    for c in img.components:
+        out.components.append(jax_jpegio.ComponentData(
+            component_id=c.component_id, h_samp_factor=c.h_samp_factor,
+            v_samp_factor=c.v_samp_factor, quant_tbl_no=c.quant_tbl_no,
+            width_in_blocks=c.width_in_blocks,
+            height_in_blocks=c.height_in_blocks,
+            quantval=c.quantval.copy(), coefs=c.coefs.copy()))
+    return out
+
+
+@pytest.mark.parametrize("case", chip_smoke.GOLDEN_CASES,
+                         ids=[c[0] for c in chip_smoke.GOLDEN_CASES])
+def test_golden_digests_are_the_jax_package_output(case):
+    img = chip_smoke.golden_image(case)
+    opts = chip_smoke.golden_opts(case)
+    want = jax_engine.smooth(_to_jax_image(img), JaxOptions(
+        flags=opts.flags, niter=opts.niter))
+    assert chip_smoke.digest(want.coefs, want.stop) == \
+        chip_smoke.GOLDEN[case[0]]
+    got = jpegqs_tpu_torch.smooth(img, opts, device="cpu")
+    assert chip_smoke.digest(got.coefs, got.stop) == \
+        chip_smoke.GOLDEN[case[0]]
+    if case[3] and case[1][0] == "synth":   # niter > 0 moves coefficients
+        assert any(not np.array_equal(a, c.coefs)
+                   for a, c in zip(got.coefs, img.components))
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                       capture_output=True, text=True, env=_env(),
+                       timeout=300)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, env=_env(),
+                       timeout=300)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
