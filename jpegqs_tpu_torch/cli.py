@@ -189,6 +189,8 @@ def main(argv=None) -> int:
                 print(f"time: {elapsed:.3f} ms", file=sys.stderr)
             for ci in range(len(img.components)):
                 f.write_coefs(ci, res.coefs[ci])
+            if res.upsampled is not None:
+                f.set_upsampled(res.upsampled[0], res.upsampled[1])
             out = f.save(optimize=bool(opts["optimize"]))
             num_warnings = f.num_warnings()
     except (ValueError, NotImplementedError, RuntimeError) as e:

@@ -141,6 +141,13 @@ __device__ __forceinline__ int interval_clamp(int add, int a0, int dv) {
   return max(min(add, dh), dl);
 }
 
+// The C (int) cast of the x86 build (cvttss2si): truncation toward zero,
+// INT32_MIN for NaN and out-of-range values.  cvt.rzi saturates and maps
+// NaN to 0, so the range is tested first (NaN fails both compares).
+__device__ __forceinline__ int c_cast(float x) {
+  return (x >= -2147483648.0f && x < 2147483648.0f) ? (int)x : INT32_MIN;
+}
+
 // Term j of the diff vector in scalar fold order (quantsmooth.h:1521-1541)
 // as a pair of indices into v[96] = {64 pixels r*8+c, top[8], bottom[8],
 // left[8], right[8]}: 56 horizontal, 32 border, 56 vertical, 98 diagonal.
@@ -199,6 +206,106 @@ idct_pix_kernel(const int* __restrict__ coef, int* __restrict__ pix,
 }
 
 // ---------------------------------------------------------------------------
+// The pieces of a solver pass that B2, B3 and B4 share.
+// ---------------------------------------------------------------------------
+
+// The k = 63..1 sweep (quantsmooth.h:1403-1565) on one block: c the
+// coefficients, v[64..95] the four border lines; v[0..63] receive the
+// refreshed pixels.  Every product and sum of the a2/a3 folds is
+// __fmul_rn/__fadd_rn in the scalar term order.  A thread refreshes (IDCT)
+// only at a zigzag refresh point and only when one of its coefficients
+// changed, as the C reference does; the TPU kernel's masked full-tile
+// refresh gives the same values.
+template <int NT>
+__device__ __forceinline__ void sweep(int (&c)[64], int (&v)[96],
+                                      const int* __restrict__ div,
+                                      const int* __restrict__ x1,
+                                      const int* __restrict__ qshr,
+                                      const float* __restrict__ tab) {
+  bool need = true;
+  for (int k = 0; k < 63; ++k) {
+    const int i = c_iseq[k];
+    if (c_refresh[k] && need) {
+      idct_block(c, v);
+      need = false;
+    }
+    const float rng = (float)(div[i] * 2);
+    const float* tr = tab + i * NT;
+    float a2 = 0.0f, a3 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      int ia, ib;
+      term_idx(j, ia, ib);
+      const float d = (float)(v[ia] - v[ib]);
+      float t = fmaxf(__fsub_rn(rng, fabsf(d)), 0.0f);  // integral: exact
+      t = __fmul_rn(t, t);
+      const float u = __fmul_rn(d, t);
+      const float w = __fmul_rn(__ldg(tr + j), t);
+      a2 = __fadd_rn(a2, __fmul_rn(u, w));
+      a3 = __fadd_rn(a3, __fmul_rn(w, w));
+    }
+    const int delta = c_cast(roundf(__fdiv_rn(a2, a3)));  // half away
+    if (delta != 0) {
+      const int coef1 = c[i];
+      const int dv = div[i];
+      const int a0 = orig_coef(coef1, dv, x1[i], qshr[i]);
+      const int nc =
+          interval_clamp((int)((u32)coef1 - (u32)delta), a0, dv);
+      if (nc != coef1) {
+        c[i] = nc;
+        need = true;
+      }
+    }
+  }
+}
+
+// AC energy restore (quantsmooth.h:1823-1848), int64 as specref
+// .rebalance_blocks; sums in uint64 so they wrap like numpy's int64.
+__device__ __forceinline__ void rebalance(int (&c)[64],
+                                          const int* __restrict__ div,
+                                          const int* __restrict__ x1,
+                                          const int* __restrict__ qshr) {
+  u64 m0 = 0, m1 = 0;
+#pragma unroll 7
+  for (int k = 1; k < 64; ++k) {
+    const long long a0 = orig_coef(c[k], div[k], x1[k], qshr[k]);
+    m0 += (u64)((long long)c[k] * a0);
+    m1 += (u64)(a0 * a0);
+  }
+  const long long sm0 = (long long)m0, sm1 = (long long)m1;
+  if (sm1 > sm0) {
+    const long long num = (long long)((m1 << 13) + (u64)(sm0 >> 1));
+    const long long den = sm0 == 0 ? 1 : sm0;
+    const long long q64 =
+        den == -1 ? (long long)(0ull - (u64)num) : num / den;  // C trunc
+    const u32 mul = (u32)(u64)q64;                             // int trunc
+#pragma unroll 7
+    for (int k = 1; k < 64; ++k) {
+      const int dv = div[k];
+      const int a0 = orig_coef(c[k], dv, x1[k], qshr[k]);
+      const long long prod = (int)((u32)c[k] * mul);
+      c[k] = interval_clamp((int)((prod + 0x1000) >> 13), a0, dv);
+    }
+  }
+}
+
+// Write the block's coefficients and, when pix_out is given, their IDCT
+// (the next pass's pixels).
+__device__ __forceinline__ void emit_block(const int (&c)[64],
+                                           int* __restrict__ coef_out,
+                                           int* __restrict__ pix_out,
+                                           size_t S, int b) {
+#pragma unroll
+  for (int k = 0; k < 64; ++k) coef_out[k * S + b] = c[k];
+  if (pix_out != nullptr) {
+    int p[64];
+    idct_block(c, p);
+#pragma unroll
+    for (int k = 0; k < 64; ++k) pix_out[k * S + b] = p[k];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // B2: one resident solver pass = border lines + k=63..1 sweep + rebalance +
 // emitted pixels.
 // Replaces jpegqs_tpu/ops/pallas_solver.py solve_rebalance_pix
@@ -212,11 +319,9 @@ idct_pix_kernel(const int* __restrict__ coef, int* __restrict__ pix,
 // Design: one thread per block.  The refreshed pixels and the four border
 // lines live in registers (v[96]); each diff term is formed on the fly from
 // two of them (term_idx, unrolled), so no diff array touches memory; the
-// coefficients are indexed by the sweep step and sit in local memory.  A
-// thread refreshes (IDCT) only at a zigzag refresh point and only when one
-// of its coefficients changed, as the C reference does; the TPU kernel's
-// masked full-tile refresh gives the same values.  pix_out never aliases
-// pix_in: neighbours' previous-pass pixels are read while others write.
+// coefficients are indexed by the sweep step and sit in local memory.
+// pix_out never aliases pix_in: neighbours' previous-pass pixels are read
+// while others write.
 // ---------------------------------------------------------------------------
 template <int NT>
 __global__ void __launch_bounds__(kThreads)
@@ -253,79 +358,284 @@ solve_rebalance_pix_kernel(const int* __restrict__ coef_in,
         pix_in[bx == wb - 1 ? (q * 8 + 7) * S + b : (q * 8) * S + (b + 1)];
   }
 
-  bool need = true;
-  for (int k = 0; k < 63; ++k) {
-    const int i = c_iseq[k];
-    if (c_refresh[k] && need) {
-      idct_block(c, v);
-      need = false;
-    }
-    const float rng = (float)(div[i] * 2);
-    const float* tr = tab + i * NT;
-    float a2 = 0.0f, a3 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      int ia, ib;
-      term_idx(j, ia, ib);
-      const float d = (float)(v[ia] - v[ib]);
-      float t = fmaxf(__fsub_rn(rng, fabsf(d)), 0.0f);  // integral: exact
-      t = __fmul_rn(t, t);
-      const float u = __fmul_rn(d, t);
-      const float w = __fmul_rn(__ldg(tr + j), t);
-      a2 = __fadd_rn(a2, __fmul_rn(u, w));
-      a3 = __fadd_rn(a3, __fmul_rn(w, w));
-    }
-    const float r = roundf(__fdiv_rn(a2, a3));  // half away from zero
-    const int delta =
-        (r >= -2147483648.0f && r < 2147483648.0f) ? (int)r : INT32_MIN;
-    if (delta != 0) {
-      const int coef1 = c[i];
-      const int dv = div[i];
-      const int a0 = orig_coef(coef1, dv, x1[i], qshr[i]);
-      const int nc =
-          interval_clamp((int)((u32)coef1 - (u32)delta), a0, dv);
-      if (nc != coef1) {
-        c[i] = nc;
-        need = true;
-      }
-    }
-  }
+  sweep<NT>(c, v, div, x1, qshr, tab);
+  if (do_rebalance) rebalance(c, div, x1, qshr);
+  emit_block(c, coef_out, pix_out, S, b);
+}
 
-  if (do_rebalance) {
-    // AC energy restore (quantsmooth.h:1823-1848), int64 as specref
-    // .rebalance_blocks; sums in uint64 so they wrap like numpy's int64.
-    u64 m0 = 0, m1 = 0;
-#pragma unroll 7
-    for (int k = 1; k < 64; ++k) {
-      const long long a0 = orig_coef(c[k], div[k], x1[k], qshr[k]);
-      m0 += (u64)((long long)c[k] * a0);
-      m1 += (u64)(a0 * a0);
-    }
-    const long long sm0 = (long long)m0, sm1 = (long long)m1;
-    if (sm1 > sm0) {
-      const long long num = (long long)((m1 << 13) + (u64)(sm0 >> 1));
-      const long long den = sm0 == 0 ? 1 : sm0;
-      const long long q64 =
-          den == -1 ? (long long)(0ull - (u64)num) : num / den;  // C trunc
-      const u32 mul = (u32)(u64)q64;                  // int truncation
-#pragma unroll 7
-      for (int k = 1; k < 64; ++k) {
-        const int dv = div[k];
-        const int a0 = orig_coef(c[k], dv, x1[k], qshr[k]);
-        const long long prod = (int)((u32)c[k] * mul);
-        c[k] = interval_clamp((int)((prod + 0x1000) >> 13), a0, dv);
-      }
-    }
-  }
+// ---------------------------------------------------------------------------
+// The JOINT_YUV and LOW_QUALITY preambles of B3/B4 (quantsmooth.h:577-1179).
+// ---------------------------------------------------------------------------
 
+// The 10x10 halo of block b -- its pixels with the 1-pixel ring of its 8
+// neighbours, edge-replicated -- from the previous pass's pixels
+// (planar.blocks_halo10, pallas_solver._ring_from_pix).  The vertical ring
+// goes on first, so a corner reads the neighbour's already-extended column:
+// at a top-row block that is not in the left column the top-left corner is
+// pixel 7 of the LEFT neighbour, at a left-column block not in the top row
+// pixel 56 of the UP neighbour, and so on.  Each ternary picks the index
+// before the load, so no read leaves the block's own image.
+__device__ __forceinline__ void load_halo(const int* __restrict__ pix,
+                                          size_t S, int b, int hb, int wb,
+                                          int (&h)[100]) {
+  const int loc = b % (hb * wb);
+  const int by = loc / wb, bx = loc % wb;
+  const bool t = by == 0, d = by == hb - 1, l = bx == 0, r = bx == wb - 1;
+  auto px = [&](int k, int blk) { return pix[(size_t)k * S + blk]; };
 #pragma unroll
-  for (int k = 0; k < 64; ++k) coef_out[k * S + b] = c[k];
-  if (pix_out != nullptr) {
-    int p[64];
-    idct_block(c, p);
+  for (int q = 0; q < 8; ++q) {
 #pragma unroll
-    for (int k = 0; k < 64; ++k) pix_out[k * S + b] = p[k];
+    for (int p = 0; p < 8; ++p) h[(q + 1) * 10 + p + 1] = px(q * 8 + p, b);
+    h[1 + q] = t ? px(q, b) : px(56 + q, b - wb);
+    h[91 + q] = d ? px(56 + q, b) : px(q, b + wb);
+    h[(q + 1) * 10] = l ? px(q * 8, b) : px(q * 8 + 7, b - 1);
+    h[(q + 1) * 10 + 9] = r ? px(q * 8 + 7, b) : px(q * 8, b + 1);
   }
+  h[0] = l ? (t ? px(0, b) : px(56, b - wb))
+           : (t ? px(7, b - 1) : px(63, b - wb - 1));
+  h[9] = r ? (t ? px(7, b) : px(63, b - wb))
+           : (t ? px(0, b + 1) : px(56, b - wb + 1));
+  h[90] = l ? (d ? px(56, b) : px(0, b + wb))
+            : (d ? px(63, b - 1) : px(7, b + wb - 1));
+  h[99] = r ? (d ? px(63, b) : px(7, b + wb))
+            : (d ? px(56, b + 1) : px(0, b + wb + 1));
+}
+
+// JOINT_YUV: the 3x3 (1,2,1)^2 weighted regression of the chroma halo h on
+// the downsampled-luma halo g (quantsmooth.h:893-920, planar
+// .joint_yuv_fblocks) -> the centred predicted block.  The statistics are
+// integers below 2^24 (sAA <= 16 * 16 * 255^2), so int32 sums converted to
+// float equal the reference's float sums exactly.
+__device__ __forceinline__ void joint_fblock(const int (&h)[100],
+                                             const int (&g)[100],
+                                             float (&fb)[64]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      int sa = 0, sb = 0, saa = 0, sab = 0;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const int w = (dy == 1 ? 2 : 1) * (dx == 1 ? 2 : 1);
+          const int a = g[(r + dy) * 10 + c + dx];
+          const int bb = h[(r + dy) * 10 + c + dx];
+          sa += w * a;
+          sb += w * bb;
+          saa += w * a * a;
+          sab += w * a * bb;
+        }
+      }
+      const int s_aa = saa * 16 - sa * sa;
+      const int s_ab = sab * 16 - sa * sb;
+      // guarded divide: no NaN reaches fminf/fmaxf (which would drop it)
+      float scale = s_aa != 0 ? __fdiv_rn((float)s_ab, (float)s_aa) : 0.0f;
+      scale = fminf(fmaxf(scale, -16.0f), 16.0f);
+      const float centre = (float)(g[(r + 1) * 10 + c + 1] * 16 - sa);
+      const float av = __fmul_rn(
+          __fadd_rn(__fmul_rn(centre, scale), (float)sb), 0.0625f);
+      fb[r * 8 + c] = fminf(__fsub_rn(fmaxf(av, 0.0f), 128.0f), 128.0f);
+    }
+  }
+}
+
+// LOW_QUALITY range (quantsmooth.h:929-938, planar.low_quality_range_p): a
+// strict left fold of (float)(div * |AC|) with the product in 32-bit int,
+// times 4 / sum|AC| when that sum is not 0, min 128, roundf.
+__device__ __forceinline__ float lq_range(const int (&c)[64],
+                                          const int* __restrict__ div) {
+  float acc = 0.0f;
+  u32 s = 0;
+#pragma unroll
+  for (int k = 1; k < 64; ++k) {
+    const u32 a = c[k] < 0 ? 0u - (u32)c[k] : (u32)c[k];
+    acc = __fadd_rn(acc, (float)(int)((u32)div[k] * a));
+    s += a;
+  }
+  float rng = acc;
+  if (s != 0) rng = __fmul_rn(acc, __fdiv_rn(4.0f, (float)(int)s));
+  return roundf(fminf(rng, 128.0f));
+}
+
+// LOW_QUALITY 3x3 weighted gradient shrink (quantsmooth.h:1161-1175,
+// planar.low_quality_fblocks): the 8 neighbours in row-major order, weight
+// 2 for the orthogonal ones and fp32(2 * sqrt(fp32(0.5))) for the diagonal
+// ones, fp32 folds in that order, an IEEE divide and the C (int) cast.
+__device__ __forceinline__ void lq_fblock(const int (&h)[100], float rng,
+                                          float (&fb)[64]) {
+  const float c1 = __int_as_float(0x3FB504F3);  // planar.LQ_C1
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int a = h[(r + 1) * 10 + c + 1];
+      float acc0 = 0.0f, accn = 0.0f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int m = n < 4 ? n : n + 1;           // skip the centre
+        const int dy = m / 3 - 1, dx = m % 3 - 1;
+        const float t0 = (float)(a - h[(r + 1 + dy) * 10 + c + 1 + dx]);
+        float t = fmaxf(__fsub_rn(rng, fabsf(t0)), 0.0f);  // integral
+        t = __fmul_rn(t, t);                               // < 2^24: exact
+        const float aw = __fmul_rn(dx != 0 && dy != 0 ? c1 : 2.0f, t);
+        acc0 = __fadd_rn(acc0, __fmul_rn(__fmul_rn(t0, t), aw));
+        accn = __fadd_rn(accn, __fmul_rn(aw, aw));
+      }
+      const float shifted = __fsub_rn((float)a, __fdiv_rn(acc0, accn));
+      const int na = accn > 0.0f ? c_cast(shifted) : a;
+      fb[r * 8 + c] = (float)(int)((u32)na - 128u);
+    }
+  }
+}
+
+// 8-point float FDCT butterfly, the scalar order of idct.h:608-628
+// (pallas_solver._fdct_pass_t); the literals round to the same fp32 values
+// as the JAX package's np.float32 constants.
+__device__ __forceinline__ void fdct_pass(const float (&x)[8],
+                                          float (&o)[8]) {
+  float t0 = __fadd_rn(x[0], x[7]), t7 = __fsub_rn(x[0], x[7]);
+  float t1 = __fadd_rn(x[1], x[6]), t6 = __fsub_rn(x[1], x[6]);
+  float t2 = __fadd_rn(x[2], x[5]), t5 = __fsub_rn(x[2], x[5]);
+  float t3 = __fadd_rn(x[3], x[4]), t4 = __fsub_rn(x[3], x[4]);
+  float z1 = __fadd_rn(t0, t3), z4 = __fsub_rn(t0, t3);
+  float z2 = __fadd_rn(t1, t2), z3 = __fsub_rn(t1, t2);
+  o[0] = __fadd_rn(z1, z2);
+  o[4] = __fsub_rn(z1, z2);
+  z1 = __fmul_rn(__fadd_rn(z3, z4), 0.541196100f);
+  o[2] = __fadd_rn(z1, __fmul_rn(z4, 0.765366865f));
+  o[6] = __fsub_rn(z1, __fmul_rn(z3, 1.847759065f));
+  z1 = __fadd_rn(t4, t7);
+  z2 = __fadd_rn(t5, t6);
+  z3 = __fadd_rn(t4, t6);
+  z4 = __fadd_rn(t5, t7);
+  const float z5 = __fmul_rn(__fadd_rn(z3, z4), 1.175875602f);
+  t4 = __fmul_rn(t4, 0.298631336f);
+  t5 = __fmul_rn(t5, 2.053119869f);
+  t6 = __fmul_rn(t6, 3.072711026f);
+  t7 = __fmul_rn(t7, 1.501321110f);
+  z1 = __fmul_rn(z1, 0.899976223f);
+  z2 = __fmul_rn(z2, 2.562915447f);
+  z3 = __fsub_rn(__fmul_rn(z3, 1.961570560f), z5);
+  z4 = __fsub_rn(__fmul_rn(z4, 0.390180644f), z5);
+  o[7] = __fsub_rn(t4, __fadd_rn(z1, z3));
+  o[5] = __fsub_rn(t5, __fadd_rn(z2, z4));
+  o[3] = __fsub_rn(t6, __fadd_rn(z2, z3));
+  o[1] = __fsub_rn(t7, __fadd_rn(z1, z4));
+}
+
+// fdct_clamp (quantsmooth.h:343-562, scalar 551-561): float FDCT of the
+// predicted block (columns, then rows times 0.125 as its own rounded step),
+// roundf, the C cast, then the clamp to the interval around the INCOMING
+// coefficient.
+__device__ __forceinline__ void fdct_clamp(const float (&fb)[64],
+                                           int (&c)[64],
+                                           const int* __restrict__ div,
+                                           const int* __restrict__ x1,
+                                           const int* __restrict__ qshr) {
+  float ws[64];
+#pragma unroll
+  for (int col = 0; col < 8; ++col) {
+    float x[8], o[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) x[r] = fb[r * 8 + col];
+    fdct_pass(x, o);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) ws[u * 8 + col] = o[u];
+  }
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    float x[8], o[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) x[k] = ws[u * 8 + k];
+    fdct_pass(x, o);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = u * 8 + k, dv = div[i];
+      const int add = c_cast(roundf(__fmul_rn(o[k], 0.125f)));
+      c[i] = interval_clamp(add, orig_coef(c[i], dv, x1[i], qshr[i]), dv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B3 (PRE = kJoint) and B4 (PRE = kLowQuality): one fused pass = the 10x10
+// halo from the previous pass's pixels + the JOINT_YUV or LOW_QUALITY
+// preamble + fdct_clamp, then (NT > 0) B2's sweep with the halo's edge
+// lines as borders, the rebalance and the emitted pixels.
+// Replaces jpegqs_tpu/ops/pallas_solver.py solve_fused_pix (_solve_tiled
+// aux_mode="pix" with preamble "joint" / "lq": _halo_from_pix, _joint_tile
+// or _lq_range_tile + _lq_shrink_tile, _fdct_clamp_tile, the sweep unless
+// LOW_QUALITY, _rebalance_tile, emit_pix).
+// Bound on this card: with the sweep (JOINT at q5/q6, NT 144/242) fp32
+// operations, as B2 (13,308 non-zero-weight terms x 9 ops per block at
+// NT 242); without it (JOINT at q1/q2, LQ at q0-q2) bytes -- ~1.0-1.4 KB
+// per block (coefficients in and out, the 9-block pixel window, image2,
+// pixels out) against ~5-7k fp32 ops.
+// Design: one thread per block, as B2.  The halos (2 x 100 ints) and the
+// predicted block do not fit in registers beside the coefficients, so
+// some of them spill to local memory (L1-cached; the ptxas report says how
+// much); they are dead once fdct_clamp has run, before the sweep's v[96]
+// is live.  image2 [100, B] is read once per block.  pix_out never aliases
+// pix_in.
+// ---------------------------------------------------------------------------
+constexpr int kJoint = 0;
+constexpr int kLowQuality = 1;
+
+struct FusedArgs {
+  const int* coef_in;
+  const int* pix_in;
+  const int* image2;  // [100, B] downsampled-luma halos (kJoint only)
+  int* coef_out;
+  int* pix_out;       // may be NULL
+  const int* div;
+  const int* x1;
+  const int* qshr;
+  const float* tab;   // [64, NT] (NT > 0 only)
+  int nblocks, hb, wb, do_rebalance;
+};
+
+template <int PRE, int NT>
+__global__ void __launch_bounds__(kThreads)
+solve_fused_pix_kernel(const FusedArgs a) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= a.nblocks) return;
+  const size_t S = (size_t)a.nblocks;
+  const int* __restrict__ div = a.div;
+  const int* __restrict__ x1 = a.x1;
+  const int* __restrict__ qshr = a.qshr;
+
+  int c[64];
+#pragma unroll
+  for (int k = 0; k < 64; ++k) c[k] = a.coef_in[k * S + b];
+  int h[100];
+  load_halo(a.pix_in, S, b, a.hb, a.wb, h);
+
+  float fb[64];
+  if constexpr (PRE == kJoint) {
+    int g[100];
+#pragma unroll
+    for (int k = 0; k < 100; ++k) g[k] = a.image2[k * S + b];
+    joint_fblock(h, g, fb);
+  } else {
+    lq_fblock(h, lq_range(c, div), fb);
+  }
+  fdct_clamp(fb, c, div, x1, qshr);
+
+  if constexpr (NT > 0) {
+    // the solver borders are rows/cols of the very halo
+    int v[96];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      v[64 + q] = h[1 + q];
+      v[72 + q] = h[91 + q];
+      v[80 + q] = h[(q + 1) * 10];
+      v[88 + q] = h[(q + 1) * 10 + 9];
+    }
+    sweep<NT>(c, v, div, x1, qshr, a.tab);
+  }
+  if (a.do_rebalance) rebalance(c, div, x1, qshr);
+  emit_block(c, a.coef_out, a.pix_out, S, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -386,6 +696,34 @@ int jq_solve_rebalance_pix(const int* coef_in, const int* pix_in,
       solve_rebalance_pix_kernel<242><<<grid, block, 0, s>>>(
           coef_in, pix_in, coef_out, pix_out, div, x1, qshr, tab, nblocks,
           hb, wb, do_rebalance);
+  }
+  return (int)cudaGetLastError();
+}
+
+// B3 when image2 is given (nt 0: no sweep under LOW_QUALITY, or 144/242),
+// B4 when it is NULL (nt must be 0: the LOW_QUALITY preamble never sweeps).
+// pix_out may be NULL.
+int jq_solve_fused_pix(const int* coef_in, const int* pix_in,
+                       const int* image2, int* coef_out, int* pix_out,
+                       const int* div, const int* x1, const int* qshr,
+                       const float* tab, int nt, int nblocks, int hb, int wb,
+                       int do_rebalance, void* stream) {
+  if (nt != 0 && nt != 144 && nt != 242) return (int)cudaErrorInvalidValue;
+  if (image2 == nullptr && nt != 0) return (int)cudaErrorInvalidValue;
+  if (nblocks > 0) {
+    const FusedArgs a{coef_in, pix_in,  image2, coef_out, pix_out,
+                      div,     x1,      qshr,   tab,      nblocks,
+                      hb,      wb,      do_rebalance};
+    const dim3 grid(blocks_for(nblocks)), block(kThreads);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (image2 == nullptr)
+      solve_fused_pix_kernel<kLowQuality, 0><<<grid, block, 0, s>>>(a);
+    else if (nt == 0)
+      solve_fused_pix_kernel<kJoint, 0><<<grid, block, 0, s>>>(a);
+    else if (nt == 144)
+      solve_fused_pix_kernel<kJoint, 144><<<grid, block, 0, s>>>(a);
+    else
+      solve_fused_pix_kernel<kJoint, 242><<<grid, block, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

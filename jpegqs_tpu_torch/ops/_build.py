@@ -36,6 +36,8 @@ _SIGNATURES = {
     "jq_idct_pix": [_P, _P, _I, _P],
     "jq_solve_rebalance_pix": [_P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _P],
+    "jq_solve_fused_pix": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _P],
     "jq_canary_muladd": [_P, _P, _P, _P, _I, _P],
     "jq_canary_fold": [_P, _P, _I, _I, _P],
     "jq_canary_divide": [_P, _P, _P, _I, _P],

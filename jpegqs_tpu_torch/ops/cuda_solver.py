@@ -1,12 +1,17 @@
 """The solver kernels' wrappers: the counterpart of
 ``jpegqs_tpu/ops/pallas_solver.py``.
 
-Two kernels carry the q3/q4 main path (csrc/solver.cu):
+The kernels of csrc/solver.cu:
 
 - ``idct_pix``: the pixel bootstrap (B1), the islow IDCT of every block;
 - ``solve_rebalance_pix``: one resident solver pass (B2): border lines
   from the previous pass's pixels, the k=63..1 sweep, the AC rebalance
-  and the pixels of the result.
+  and the pixels of the result;
+- ``solve_fused_pix``: one fused pass, B3 with the JOINT_YUV preamble
+  (``image2`` given) or B4 with the LOW_QUALITY one: the 10x10 halo from
+  the previous pass's pixels, the preamble and its FDCT + interval
+  clamp, then B2's sweep unless LOW_QUALITY, the rebalance and the
+  pixels.
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version
 (ops/dct.py, ops/planar.py); given CUDA tensors it launches the kernel
@@ -20,13 +25,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..options import DIAGONALS
+from ..options import DIAGONALS, LOW_QUALITY
 from ..specref import make_solver_tables
 from . import _build
 from .dct import idct_islow
 from . import planar
 
-LAUNCHES = {"idct_pix": 0, "solve_rebalance_pix": 0}
+LAUNCHES = {"idct_pix": 0, "solve_rebalance_pix": 0,
+            "solve_fused_pix_joint": 0, "solve_fused_pix_lq": 0}
 
 _TAB_CACHE = {}
 
@@ -132,6 +138,53 @@ def solve_rebalance_pix(coef, pix, div, x1, qshr, flags, do_rebalance, hb,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "solve_rebalance_pix")
     LAUNCHES["solve_rebalance_pix"] += 1
+    return out, pix_out
+
+
+def solve_fused_pix(coef, pix, image2, div, x1, qshr, flags, do_rebalance,
+                    hb, wb, want_pix=True):
+    """One fused pass over all blocks of a component: B3 (JOINT_YUV
+    preamble) when ``image2`` is given, else B4 (LOW_QUALITY preamble,
+    which needs ``flags & LOW_QUALITY``); the sweep runs unless
+    ``flags & LOW_QUALITY``.
+
+    coef, pix int32[64, B] (pix: the previous pass's pixels, from which
+    the 10x10 halo is rebuilt); image2 int32[100, B] the downsampled-luma
+    halos (planar.blocks_halo10, flattened) or None; div/x1/qshr
+    int32[64].  B may hold several hb x wb images back to back.
+    Returns (coef', pix') or (coef', None) when ``want_pix`` is false."""
+    B = coef.shape[1]
+    if image2 is None and not flags & LOW_QUALITY:
+        raise ValueError("a fused pass needs image2 (JOINT_YUV) or "
+                         "LOW_QUALITY flags")
+    sweep = not flags & LOW_QUALITY
+    tab = solver_tables(flags, coef.device) if sweep else None
+    ts = [t for t in (coef, pix, image2, div, x1, qshr, tab)
+          if t is not None]
+    if _is_cpu(*ts):
+        return planar.solve_fused_pix(coef, pix, image2, div, x1, qshr, tab,
+                                      flags, do_rebalance, hb, wb, want_pix)
+    _check(coef, torch.int32, (64, B), "coef")
+    _check(pix, torch.int32, (64, B), "pix")
+    if image2 is not None:
+        _check(image2, torch.int32, (100, B), "image2")
+    for name, t in (("div", div), ("x1", x1), ("qshr", qshr)):
+        _check(t, torch.int32, (64,), name)
+    if hb < 1 or wb < 1 or B % (hb * wb):
+        raise ValueError(f"B={B} is not a multiple of hb*wb={hb * wb}")
+    lib = _build.load()
+    out = torch.empty_like(coef)
+    pix_out = torch.empty_like(pix) if want_pix else None
+    with torch.cuda.device(coef.device):
+        err = lib.jq_solve_fused_pix(
+            coef.data_ptr(), pix.data_ptr(), _ptr(image2), out.data_ptr(),
+            _ptr(pix_out), div.data_ptr(), x1.data_ptr(), qshr.data_ptr(),
+            _ptr(tab), tab.shape[1] if sweep else 0, B, hb, wb,
+            int(bool(do_rebalance)), torch.cuda.current_stream().cuda_stream)
+    name = ("solve_fused_pix_joint" if image2 is not None
+            else "solve_fused_pix_lq")
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return out, pix_out
 
 

@@ -1,17 +1,27 @@
-"""The solver pass on planar data, eager torch: the plain version of the
-sweep + rebalance kernel ``solve_rebalance_pix`` (csrc/solver.cu).
+"""Planar-layout passes, eager torch: the plain versions of the solver
+kernels (csrc/solver.cu) and the block-wise colour glue.
+
+- ``solve_rebalance_pix``: plain version of B2 (sweep + rebalance);
+- ``solve_fused_pix``: plain version of B3 (JOINT_YUV preamble) and B4
+  (LOW_QUALITY preamble), the non-Pallas branch of
+  ``jpegqs_tpu.engine.block_pass_p`` composed the way the kernel runs it;
+- the 10x10 halos, downsample and UPSAMPLE_UV in block form, which run
+  as this same eager torch on the card (the JAX package runs them as XLA
+  ops, outside any Pallas kernel).
 
 Layouts follow the JAX package's public functions:
 
-- pixel blocks:       [8, 8, B]  (row, col, block)
-- flat coefficients:  [64, B]    (natural position, block)
-- diff terms:         [NT, B]    (term in scalar fold order, block)
+- pixel blocks:       [8, 8, B]    (row, col, block)
+- pixel halos:        [10, 10, B]  (the block with its 1-pixel ring)
+- flat coefficients:  [64, B]      (natural position, block)
+- diff terms:         [NT, B]      (term in scalar fold order, block)
 
 Bit-exactness: integer math is int32 with two's-complement wraparound
 (the rebalance is int64, as ``specref.rebalance_blocks``); every fp32
 product and sum is its own torch op, so it is rounded once, and the
-a2/a3 accumulations are explicit left folds over the terms (never
-``torch.sum``/``cumsum``, whose order is unspecified on the card).
+fp32 accumulations are explicit left folds (never ``torch.sum``/
+``cumsum``, whose order is unspecified on the card).  No convolution
+or matmul is used: they may run in TF32 or reassociate.
 """
 
 from __future__ import annotations
@@ -19,8 +29,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..options import LOW_QUALITY
 from ..specref import NATURAL_ORDER, ZIGZAG_REFRESH
-from .dct import idct_islow
+from .dct import fdct_float, idct_islow
 from .quant import (roundf, c_f32_to_i32, get_orig_coef, interval_clamp,
                     wrap_i32)
 
@@ -168,3 +179,279 @@ def solve_rebalance_pix(coef, pix, div, x1, qshr, tab, do_rebalance, hb,
     if not want_pix:
         return out, None
     return out, idct_islow(out.reshape(8, 8, B)).reshape(64, B)
+
+
+# ---------------------------------------------------------------------------
+# 10x10 halos and the 3x3 cross-block paths
+# ---------------------------------------------------------------------------
+
+def blocks_halo10(pix, hb, wb):
+    """int32[8, 8, B] blocks -> int32[10, 10, B]: each block with its
+    1-pixel ring (image-edge replicated), gathered from neighbouring
+    blocks -- the reference's padded-plane reads (quantsmooth.h:
+    2612-2620).  B may hold several hb x wb images back to back.
+
+    Corners: the vertical halo goes on first, so the horizontal gather
+    of a neighbour's edge column includes that neighbour's own vertical
+    halo rows (at a top-row block not in the left column the top-left
+    corner is pixel 7 of the left neighbour)."""
+    p4 = pix.reshape(8, 8, -1, hb, wb)
+    up = torch.cat([p4[0:1, :, :, :1], p4[7:8, :, :, :-1]], dim=3)
+    dn = torch.cat([p4[0:1, :, :, 1:], p4[7:8, :, :, -1:]], dim=3)
+    mid = torch.cat([up, p4, dn], dim=0)                  # [10, 8, n, hb, wb]
+    left = torch.cat([mid[:, 0:1, ..., :1], mid[:, 7:8, ..., :-1]], dim=4)
+    right = torch.cat([mid[:, 0:1, ..., 1:], mid[:, 7:8, ..., -1:]], dim=4)
+    return torch.cat([left, mid, right], dim=1).reshape(10, 10, -1)
+
+
+_W3 = ((1, 2, 1), (2, 4, 2), (1, 2, 1))
+
+
+def _conv3x3_f(halo):
+    """Weighted 3x3 sums over a [10, 10, B] halo in f32 -> [8, 8, B].
+    Exact: the inputs are pixels (<= 255) or their products, so every
+    partial sum is an integer far below 2^24."""
+    out = torch.zeros((8, 8) + tuple(halo.shape[2:]), dtype=F32,
+                      device=halo.device)
+    for dy in range(3):
+        for dx in range(3):
+            out = out + float(_W3[dy][dx]) * halo[dy:dy + 8, dx:dx + 8]
+    return out
+
+
+def _regression_f(a, b):
+    """The 3x3 (1,2,1)^2 weighted regression of halo b on halo a, both
+    f32[10, 10, B] (reference: quantsmooth.h:893-912): (slope, sumA,
+    sumB) per pixel, [8, 8, B].  The statistics are exact integers below
+    2^24; the slope is an IEEE divide guarded by sAA != 0, clamped to
+    +-16."""
+    sum_a = _conv3x3_f(a)
+    sum_b = _conv3x3_f(b)
+    s_aa = _conv3x3_f(a * a) * 16.0 - sum_a * sum_a
+    s_ab = _conv3x3_f(a * b) * 16.0 - sum_a * sum_b
+    scale = torch.where(s_aa != 0, s_ab / s_aa, 0.0)
+    return torch.clamp(scale, -16.0, 16.0), sum_a, sum_b
+
+
+def joint_yuv_fblocks(chroma_halo, luma2_halo):
+    """JOINT_YUV predicted chroma: the regression of chroma on the
+    downsampled luma, centred, f32[8, 8, B] ready for fdct_clamp_p
+    (reference: quantsmooth.h:893-920)."""
+    a = luma2_halo.to(F32)
+    scale, sum_a, sum_b = _regression_f(a, chroma_halo.to(F32))
+    av = ((a[1:9, 1:9] * 16.0 - sum_a) * scale + sum_b) * 0.0625
+    av = torch.clamp_min(av, 0.0) - 128.0
+    return torch.clamp_max(av, 128.0)
+
+
+# fp32(2 * sqrt(fp32(0.5))): the diagonal weight of the LQ shrink, a
+# float32 product as the reference computes it (bits 0x3FB504F3)
+LQ_C1 = float(np.float32(np.float32(2.0) * np.sqrt(np.float32(0.5))))
+
+# 8-neighbour order of the LQ shrink (quantsmooth.h:1164-1171):
+# (dx, dy, diagonal)
+_LQ_NEIGHBORS = ((-1, -1, 1), (0, -1, 0), (1, -1, 1),
+                 (-1, 0, 0), (1, 0, 0),
+                 (-1, 1, 1), (0, 1, 0), (1, 1, 1))
+
+
+def low_quality_range_p(coef, div):
+    """Per-block range estimate on coef int32[64, B] -> f32[B]
+    (reference: quantsmooth.h:929-938): a strict fp32 left fold of
+    (float)(div * |AC|) with the product in 32-bit int, times 4/sum|AC|
+    when that sum is not 0, min 128, roundf."""
+    a = coef[1:].abs()                                       # [63, B]
+    prod = wrap_i32(div[1:, None].long() * a.long()).to(F32)
+    acc = torch.zeros(coef.shape[1:], dtype=F32, device=coef.device)
+    for i in range(63):
+        acc = acc + prod[i]
+    s = wrap_i32(a.long().sum(0)).to(F32)      # integer sum: order-free
+    mul = torch.full_like(s, 4.0) / s          # IEEE (never 4.0 / s:
+    rng = torch.where(s != 0, acc * mul, acc)  # that is reciprocal * 4)
+    return roundf(torch.clamp_max(rng, 128.0))
+
+
+def low_quality_fblocks(halo, rng):
+    """LOW_QUALITY 3x3 weighted gradient shrink (reference:
+    quantsmooth.h:1161-1175), fp32 folds in the exact 8-neighbour
+    order.  halo int32[10, 10, B]; rng f32[B] from low_quality_range_p.
+    Returns the centred f32[8, 8, B] for fdct_clamp_p."""
+    p = halo.to(I32)
+    a = p[1:9, 1:9]
+    rmap = rng[None, None]
+    acc0 = torch.zeros(a.shape, dtype=F32, device=a.device)
+    accn = torch.zeros(a.shape, dtype=F32, device=a.device)
+    for dx, dy, diag in _LQ_NEIGHBORS:
+        t0 = (a - p[1 + dy:9 + dy, 1 + dx:9 + dx]).to(F32)
+        t = torch.clamp_min(rmap - t0.abs(), 0.0)   # integral: exact
+        t = t * t                                   # < 2^24: exact
+        aw = (LQ_C1 if diag else 2.0) * t
+        acc0 = acc0 + (t0 * t) * aw                 # t0 * t: exact
+        accn = accn + aw * aw
+    shifted = a.to(F32) - acc0 / accn
+    newa = torch.where(accn > 0, c_f32_to_i32(shifted), a)
+    return (newa - 128).to(F32)
+
+
+def fdct_clamp_p(fblocks, coef, div, x1, qshr):
+    """FDCT of fblocks f32[8, 8, B], roundf, C cast, then the clamp of
+    each coefficient to the interval around the incoming coef
+    int32[64, B] (reference: quantsmooth.h:343-562, scalar 551-561)."""
+    buf = fdct_float(fblocks).reshape(64, -1)
+    a0 = get_orig_coef(coef, div[:, None], x1[:, None], qshr[:, None])
+    return interval_clamp(c_f32_to_i32(roundf(buf)), a0, div[:, None])
+
+
+def solve_fused_pix(coef, pix, image2, div, x1, qshr, tab, flags,
+                    do_rebalance, hb, wb, want_pix=True):
+    """One fused pass, the plain version of kernels B3/B4.
+
+    coef, pix int32[64, B] (pix: the previous pass's pixels, the source
+    of the 10x10 halo); image2 int32[100, B] downsampled-luma halos
+    (JOINT_YUV preamble) or None (LOW_QUALITY preamble); tab f32[64, NT]
+    the solver tables, used unless ``flags & LOW_QUALITY``.  Returns
+    (coef', pix' or None) like solve_rebalance_pix."""
+    B = coef.shape[1]
+    halo = blocks_halo10(pix.reshape(8, 8, B), hb, wb)
+    if image2 is not None:
+        fb = joint_yuv_fblocks(halo, image2.reshape(10, 10, B))
+    elif flags & LOW_QUALITY:
+        fb = low_quality_fblocks(halo, low_quality_range_p(coef, div))
+    else:
+        raise ValueError("a fused pass needs image2 or LOW_QUALITY")
+    out = fdct_clamp_p(fb, coef, div, x1, qshr)
+    if not flags & LOW_QUALITY:
+        # the solver borders are the halo's edge lines
+        borders = (halo[0, 1:9], halo[9, 1:9], halo[1:9, 0], halo[1:9, 9])
+        out = solve_blocks_p(out, borders, div, x1, qshr, tab)
+    if do_rebalance:
+        out = rebalance_blocks_p(out, div, x1, qshr)
+    if not want_pix:
+        return out, None
+    return out, idct_islow(out.reshape(8, 8, B)).reshape(64, B)
+
+
+# ---------------------------------------------------------------------------
+# Downsample and UPSAMPLE_UV in block form (sampling factors 1 and 2)
+# ---------------------------------------------------------------------------
+
+def downsample_blocks(pix_l, hb_l, wb_l, hb_c, wb_c, ws, hs):
+    """Box-downsample luma blocks int32[8, 8, hb_l*wb_l] straight to
+    chroma-sized blocks int32[8, 8, hb_c*wb_c] (reference:
+    quantsmooth.h:2753-2813, even-box path), ws, hs in {1, 2}; an odd
+    block grid is edge-extended by its last computed line, as the
+    reference's replicate tail does."""
+    assert ws in (1, 2) and hs in (1, 2)
+    if ws == 1 and hs == 1:
+        return pix_l
+    p4 = pix_l.reshape(8, 8, hb_l, wb_l)
+    rh, rw = 8 // hs, 8 // ws
+    if hs == 2 and ws == 2:
+        d = (p4[0::2, 0::2] + p4[0::2, 1::2]
+             + p4[1::2, 0::2] + p4[1::2, 1::2] + 2) >> 2
+    elif hs == 2:
+        d = (p4[0::2] + p4[1::2] + 1) >> 1
+    else:
+        d = (p4[:, 0::2] + p4[:, 1::2] + 1) >> 1
+    if hs == 2 and hb_l % 2:
+        d = torch.cat([d, d[rh - 1:rh, :, -1:, :].expand(rh, -1, -1, -1)],
+                      dim=2)
+    if ws == 2 and wb_l % 2:
+        d = torch.cat([d, d[:, rw - 1:rw, :, -1:].expand(-1, rw, -1, -1)],
+                      dim=3)
+    t = d.reshape(rh, rw, hb_c, hs, wb_c, ws)
+    return t.permute(3, 0, 5, 1, 2, 4).reshape(8, 8, hb_c * wb_c)
+
+
+def _lowres_to_hires_blocks(x, hb_l, wb_l, hb_c, wb_c, ws, hs):
+    """Broadcast a chroma-grid quantity [8, 8, Bc] to the luma grid
+    [8, 8, Bl]: full-res pixel (y, x) reads low-res (y//hs, x//ws)."""
+    rh, rw = 8 // hs, 8 // ws
+    t = x.reshape(hs, rh, ws, rw, hb_c, wb_c)
+    t = t.permute(1, 3, 4, 0, 5, 2).reshape(rh, rw, hb_c * hs, wb_c * ws)
+    t = t[:, :, :hb_l, :wb_l]
+    t = t.repeat_interleave(hs, dim=0).repeat_interleave(ws, dim=1)
+    return t.reshape(8, 8, hb_l * wb_l)
+
+
+def upsample_chroma_blocks(chroma_halo, luma2_halo, luma_pix, img_w, img_h,
+                           ws, hs, hb_l, wb_l, hb_c, wb_c):
+    """UPSAMPLE_UV in block form (reference: quantsmooth.h:1851-2394,
+    2691-2752), one device: chroma_halo / luma2_halo int32[10, 10, Bc]
+    (the component's pixels and the downsampled luma), luma_pix
+    int32[8, 8, Bl]; ws, hs in {1, 2}.  Returns the full-resolution
+    chroma pixels int32[8, 8, Bl].
+
+    Per low-res pixel the JOINT regression slope gives offset = chroma -
+    luma_ds*scale + 0.5; the output is trunc(luma*scale + offset)
+    clamped to 0..255, then the replicate tails: the right edge for the
+    first min(8, h1)*hs rows only (the reference quirk), then the
+    bottom rows."""
+    w1 = (img_w + ws - 1) // ws
+    h1 = (img_h + hs - 1) // hs
+    a = luma2_halo.to(F32)
+    b = chroma_halo.to(F32)
+    scale, _, _ = _regression_f(a, b)
+    # offset = chroma - luma_ds*scale + 0.5 (quantsmooth.h:2367)
+    offset = (b[1:9, 1:9] - a[1:9, 1:9] * scale) + 0.5
+    scale_hi = _lowres_to_hires_blocks(scale, hb_l, wb_l, hb_c, wb_c, ws,
+                                       hs)
+    offset_hi = _lowres_to_hires_blocks(offset, hb_l, wb_l, hb_c, wb_c,
+                                        ws, hs)
+    val = luma_pix.to(F32) * scale_hi + offset_hi
+    out = torch.clamp(torch.trunc(val), 0, 255).to(I32)
+
+    o4 = out.reshape(8, 8, hb_l, wb_l)
+    hh, ww = hb_l * 8, wb_l * 8
+    dev = out.device
+    row_g = (torch.arange(8, device=dev).reshape(8, 1, 1, 1)
+             + 8 * torch.arange(hb_l, device=dev).reshape(1, 1, hb_l, 1))
+    col_g = (torch.arange(8, device=dev).reshape(1, 8, 1, 1)
+             + 8 * torch.arange(wb_l, device=dev).reshape(1, 1, 1, wb_l))
+    if w1 * ws < ww:
+        # right-edge replicate from col w1*ws-1, first min(8,h1)*hs rows
+        # only (reference quirk, quantsmooth.h:1861 + 2390-2393)
+        rep_rows = min(min(8, h1) * hs, min(h1 * hs, hh))
+        sc = w1 * ws - 1
+        src_col = o4[:, sc % 8, :, min(sc // 8, wb_l - 1)]     # [8, hb_l]
+        mask = (row_g < rep_rows) & (col_g >= w1 * ws)
+        o4 = torch.where(mask, src_col[:, None, :, None], o4)
+    if h1 * hs < hh:
+        # bottom replicate from row h1*hs-1 (quantsmooth.h:2729-2730)
+        sr = h1 * hs - 1
+        src_row = o4[sr % 8, :, min(sr // 8, hb_l - 1)]        # [8, wb_l]
+        mask = row_g >= h1 * hs
+        o4 = torch.where(mask, src_row[None, :, None, :], o4)
+    return o4.reshape(8, 8, hb_l * wb_l)
+
+
+# ---------------------------------------------------------------------------
+# Layout conversions
+# ---------------------------------------------------------------------------
+
+def edge_pad1(plane):
+    """[H, W] -> [H+2, W+2], the border replicated (numpy's "edge")."""
+    p = torch.cat([plane[:1], plane, plane[-1:]], dim=0)
+    return torch.cat([p[:, :1], p, p[:, -1:]], dim=1)
+
+
+def pix_to_plane(pix, hb, wb):
+    """pix int32[8, 8, B] -> padded plane int32[hb*8+2, wb*8+2] (the
+    reference scratch plane, quantsmooth.h:2612-2620)."""
+    interior = pix.reshape(8, 8, hb, wb).permute(2, 0, 3, 1).reshape(
+        hb * 8, wb * 8)
+    return edge_pad1(interior)
+
+
+def plane_to_fblocks_p(fplane, hb, wb):
+    """Unpadded plane [hb*8, wb*8] -> planar blocks [8, 8, B]."""
+    return fplane.reshape(hb, 8, wb, 8).permute(1, 3, 0, 2).reshape(
+        8, 8, hb * wb)
+
+
+def padded_plane_to_halo10(padded, hb, wb):
+    """Padded (+1 px) plane -> [10, 10, B] halos (image2 of the plane
+    path, computed once per image)."""
+    interior = padded[1:hb * 8 + 1, 1:wb * 8 + 1]
+    return blocks_halo10(plane_to_fblocks_p(interior, hb, wb).to(I32),
+                         hb, wb)

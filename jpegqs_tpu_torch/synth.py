@@ -2,7 +2,8 @@
 
 No libjpeg is involved: a photo-like image (the generator of the test
 corpus, ``tests/util.synth_image``) goes through the JFIF RGB->YCbCr
-transform, 2x2 chroma averaging for 4:2:0, an orthonormal 8x8 DCT and
+transform, chroma averaging over the sampling cell (2x2 for 4:2:0), an
+orthonormal 8x8 DCT and
 quantization with the IJG standard tables scaled to the requested
 quality (jcparam.c semantics).  The result is a host.jpegio.JpegImage
 with the component geometry libjpeg would give the same image, so the
@@ -79,8 +80,12 @@ def _plane_coefs(plane, hb, wb, qtbl):
         np.int16).reshape(hb, wb, 64)
 
 
-def make_image(h, w, color=False, seed=0, quality=75):
-    """A JpegImage of the synthetic image: gray, or YCbCr 4:2:0."""
+def make_image(h, w, color=False, seed=0, quality=75, sampling=(2, 2)):
+    """A JpegImage of the synthetic image: gray, or YCbCr with the luma
+    sampling factors ``sampling`` = (h, v) and 1x1 chroma: (1, 1) 4:4:4,
+    (2, 1) 4:2:2, (1, 2) 4:4:0, (2, 2) 4:2:0 (the default), (4, 1)
+    4:1:1.  Chroma is box-averaged over each h x v cell, the edge
+    replicated where the image does not fill the last cell."""
     pix = synth_image(h, w, seed, color)
     ceil = lambda a, b: -(-a // b)
     if not color:
@@ -100,22 +105,25 @@ def make_image(h, w, color=False, seed=0, quality=75):
     cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
     cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
 
-    def down2(c):
-        c = np.pad(c, ((0, h % 2), (0, w % 2)), mode="edge")
-        return c.reshape(c.shape[0] // 2, 2, c.shape[1] // 2, 2).mean(
+    fh, fv = sampling
+
+    def down(c):
+        c = np.pad(c, ((0, -h % fv), (0, -w % fh)), mode="edge")
+        return c.reshape(c.shape[0] // fv, fv, c.shape[1] // fh, fh).mean(
             axis=(1, 3))
 
     img = JpegImage(width=w, height=h, jpeg_color_space=JCS_YCBCR,
-                    progressive=False, max_h_samp_factor=2,
-                    max_v_samp_factor=2)
+                    progressive=False, max_h_samp_factor=fh,
+                    max_v_samp_factor=fv)
     qy = quality_table(STD_LUMA, quality)
     qc = quality_table(STD_CHROMA, quality)
-    planes = ((1, 2, qy, 0, y), (2, 1, qc, 1, down2(cb)),
-              (3, 1, qc, 1, down2(cr)))
-    for cid, samp, qt, tno, plane in planes:
-        hb, wb = ceil(h * samp, 16), ceil(w * samp, 16)
+    planes = ((1, (fh, fv), qy, 0, y), (2, (1, 1), qc, 1, down(cb)),
+              (3, (1, 1), qc, 1, down(cr)))
+    for cid, (sh, sv), qt, tno, plane in planes:
+        # libjpeg: ceil(image size * factor / (max factor * 8))
+        hb, wb = ceil(h * sv, 8 * fv), ceil(w * sh, 8 * fh)
         img.components.append(ComponentData(
-            component_id=cid, h_samp_factor=samp, v_samp_factor=samp,
+            component_id=cid, h_samp_factor=sh, v_samp_factor=sv,
             quant_tbl_no=tno, width_in_blocks=wb, height_in_blocks=hb,
             quantval=qt, coefs=_plane_coefs(np.round(plane), hb, wb, qt)))
     return img

@@ -171,12 +171,17 @@ def test_cli_matches_jax(tmp_path):
 
 
 def test_unported_paths_raise():
+    """Every quality level runs (q0 on gray, q5 on 4:2:0 here; the JAX
+    comparisons are in tests/test_torch_color.py); only a progress
+    callback still raises."""
     gray = image_from_arrays(jax_jpegio.read_coefficients(_gray()))
     color = image_from_arrays(jax_jpegio.read_coefficients(_c420()))
-    with pytest.raises(NotImplementedError, match="LOW_QUALITY"):
-        jpegqs_tpu_torch.smooth(gray, QsOptions.from_quality(0, 3), "cpu")
-    with pytest.raises(NotImplementedError, match="JOINT_YUV"):
-        jpegqs_tpu_torch.smooth(color, QsOptions.from_quality(5, 3), "cpu")
+    for img, q in ((gray, 0), (color, 5)):
+        res = jpegqs_tpu_torch.smooth(img, QsOptions.from_quality(q, 3),
+                                      "cpu")
+        assert res.stop == 0 and len(res.coefs) == len(img.components)
+        assert any(not np.array_equal(a, c.coefs)
+                   for a, c in zip(res.coefs, img.components))
     with pytest.raises(NotImplementedError, match="progress"):
         jpegqs_tpu_torch.smooth(gray, QsOptions.from_quality(
             3, 3, progress=lambda *a: 0), "cpu")

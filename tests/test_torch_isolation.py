@@ -34,11 +34,14 @@ import chip_smoke
 import jpegqs_tpu_torch
 from jpegqs_tpu_torch import cli, engine, options, specref, synth
 from jpegqs_tpu_torch.host import jpegio
-from jpegqs_tpu_torch.ops import _build, cuda_solver, dct, planar, quant
-case = chip_smoke.GOLDEN_CASES[2]
-res = jpegqs_tpu_torch.smooth(chip_smoke.golden_image(case),
-                              chip_smoke.golden_opts(case), device="cpu")
-assert chip_smoke.digest(res.coefs, res.stop) == chip_smoke.GOLDEN[case[0]]
+from jpegqs_tpu_torch.ops import (_build, cuda_solver, dct, joint, planar,
+                                  plane, quant, upsample)
+for i in (2, 13):       # gray q3 n3; 4:2:0 q6 n3 (JOINT_YUV, UPSAMPLE_UV)
+    case = chip_smoke.GOLDEN_CASES[i]
+    res = jpegqs_tpu_torch.smooth(chip_smoke.golden_image(case),
+                                  chip_smoke.golden_opts(case), device="cpu")
+    assert chip_smoke.digest(res.coefs, res.stop, res.upsampled) == \
+        chip_smoke.GOLDEN[case[0]]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jpegqs_tpu"))
 print("FOREIGN", bad)
@@ -83,10 +86,11 @@ def test_golden_digests_are_the_jax_package_output(case):
     opts = chip_smoke.golden_opts(case)
     want = jax_engine.smooth(_to_jax_image(img), JaxOptions(
         flags=opts.flags, niter=opts.niter))
-    assert chip_smoke.digest(want.coefs, want.stop) == \
+    assert chip_smoke.digest(want.coefs, want.stop, want.upsampled) == \
         chip_smoke.GOLDEN[case[0]]
     got = jpegqs_tpu_torch.smooth(img, opts, device="cpu")
-    assert chip_smoke.digest(got.coefs, got.stop) == \
+    assert (got.upsampled is None) == (want.upsampled is None)
+    assert chip_smoke.digest(got.coefs, got.stop, got.upsampled) == \
         chip_smoke.GOLDEN[case[0]]
     if case[3] and case[1][0] == "synth":   # niter > 0 moves coefficients
         assert any(not np.array_equal(a, c.coefs)
