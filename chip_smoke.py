@@ -12,19 +12,31 @@ on any mismatch:
 2. builds the kernels and prints the build time and the ptxas report;
 3. runs the arithmetic canaries: no mul+add contraction, an exact fp32
    left fold, IEEE division;
-4. holds every kernel bit for bit against its plain PyTorch version on the
+4. T3, the fp32 peak probe: bit-identical to its plain version on a small
+   launch, then the rate of separate fp32 operations the card sustains at
+   1, 4 and 16 chains per thread, beside the data-sheet rate;
+5. holds every kernel bit for bit against its plain PyTorch version on the
    card: B1/B2 at flags 0 and DIAGONALS, B3 (JOINT_YUV preamble) with the
    sweep at NT 242 and 144 and without it, B4 (LOW_QUALITY preamble);
    rebalance on and off, pixels emitted or not, edge shapes (hb=1, wb=1,
-   1x1), two images back to back, and the main path's full-size planes;
-5. reproduces the golden SHA-256 digests of the JAX package's output
+   1x1), two images back to back; B5/B6 (the same passes on given border
+   lines / halos) at B = 1, 13, 117 and on row-chunk views of a 9x13
+   plane; and the main path's full-size planes;
+6. reproduces the golden SHA-256 digests of the JAX package's output
    planes, upsampled planes and stop flag (GOLDEN below;
    tests/test_torch_isolation.py recomputes them with jpegqs_tpu.engine)
-   with the kernels, q0-q6, gray and 4:4:4 / 4:2:2 / 4:2:0 / 4:1:1;
-6. drives the main path, ``jpegqs_tpu_torch.smooth``, on a 12 MP 4:2:0
+   with the kernels, q0-q6, gray and 4:4:4 / 4:2:2 / 4:2:0 / 4:1:1, on
+   the fused path and on the progress path (a counting callback, with
+   and without PRECISE_PROGRESS row chunks);
+7. drives the main path, ``jpegqs_tpu_torch.smooth``, on a 12 MP 4:2:0
    colour photo at q3 n1, q6 n3 and q2 n3 and on the 2.1 MP gray frame of
    bench.py at q3 n1 and q0 n3: launch counts per run, bit-identity with
-   the plain path on the card, device and end-to-end times, MP/s.
+   the plain path on the card, device and end-to-end times, MP/s;
+8. drives the progress path on the 12 MP photo: q6 n3 per iteration and
+   with row chunks (progprec 20), q2 n3 per iteration, and a cancel at
+   the third callback: the (cur, max) trace and the launch counts worked
+   out from the image, the planes against the plain path on the card and
+   the fused run, times.
 
 Its last line is {"ok": true, "device": {...}}; the line before it is
 nvidia-smi's name and power limit, and before that one JSON line of
@@ -53,8 +65,13 @@ from jpegqs_tpu_torch.ops.quant import make_quant_tables
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W limit): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 counts an FMA as two operations, so separate fp32 adds
 # and multiplies (the solver's fold never fuses) issue at half that.
+# bound_ms uses these; bound_ms_t3 uses the rate T3 measures on this card.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12 / 2
+# T3's launch: 4 waves of full SMs (132 x 2048 threads), each thread
+# 2 x 65536 fp32 operations split over its chains
+PEAK_THREADS = 4 * 132 * 2048
+PEAK_CHAIN_STEPS = 65536
 # per term of non-zero weight; a zero-weight term cannot change the fold
 # (make_solver_tables), so the work the function needs skips it
 FP32_OPS_PER_TERM = 9   # sub, max, t*t, d*t, tab*t, u*w, +, w*w, +
@@ -265,10 +282,28 @@ def plain_solve_fused_pix(coef, pix, image2, div, x1, qshr, flags,
                                   flags, do_rebalance, hb, wb, want_pix)
 
 
-KERNELS = ("idct_pix", "solve_rebalance_pix", "solve_fused_pix")
+def plain_solve_rebalance(coef, borders, div, x1, qshr, flags, do_rebalance,
+                          want_pix=False):
+    tab = cuda_solver.solver_tables(flags, coef.device)
+    return planar.solve_rebalance(coef, borders, div, x1, qshr, tab,
+                                  do_rebalance, want_pix)
+
+
+def plain_solve_fused(coef, halo, image2, div, x1, qshr, flags, do_rebalance,
+                      want_pix=False):
+    tab = (None if flags & LOW_QUALITY
+           else cuda_solver.solver_tables(flags, coef.device))
+    return planar.solve_fused(coef, halo, image2, div, x1, qshr, tab, flags,
+                              do_rebalance, want_pix)
+
+
+KERNELS = ("idct_pix", "solve_rebalance_pix", "solve_fused_pix",
+           "solve_rebalance", "solve_fused")
 PLAIN = {"idct_pix": plain_idct_pix,
          "solve_rebalance_pix": plain_solve_rebalance_pix,
-         "solve_fused_pix": plain_solve_fused_pix}
+         "solve_fused_pix": plain_solve_fused_pix,
+         "solve_rebalance": plain_solve_rebalance,
+         "solve_fused": plain_solve_fused}
 
 
 class plain_kernels:
@@ -290,12 +325,20 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, fp32_rate=PEAK_FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate
     and fp32 operations over the non-FMA fp32 rate."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+    t_ops = ops / fp32_rate * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound_row(nbytes, ops, t3_rate):
+    """The bound at the data-sheet rates and, as bound_ms_t3, with the
+    fp32 rate T3 measured on this card in place of the data sheet's."""
+    row = dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))
+    row["bound_ms_t3"] = bound(nbytes, ops, t3_rate)[0]
+    return row
 
 
 def sweep_terms(flags) -> int:
@@ -361,6 +404,44 @@ def phase_canaries(torch):
         got[~nan].view(np.int32) != want[~nan].view(np.int32)))
     assert bad == 0, f"divide canary: {bad}/{n} lanes differ from IEEE"
     log(f"canaries: muladd, fold(242), divide: {n} lanes each, all exact")
+
+
+def phase_peak(torch, stats, card):
+    """T3 against its plain version on a small launch (bit for bit), then
+    the rate of separate fp32 operations at 1, 4 and 16 chains per thread
+    over PEAK_THREADS threads; T3's row is the 16-chain launch.  Returns
+    the best measured rate (fp32 operations per second)."""
+    rng = np.random.default_rng(9)
+    small = to_dev(rng.uniform(0.5, 1.5, 4096).astype(np.float32))
+    for nch in cuda_solver.PEAK_CHAINS:
+        got = cuda_solver.peak_chains(small, nch, 64)
+        want = cuda_solver.peak_chains_plain(small, nch, 64)
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        assert bad == 0, f"T3 at {nch} chains: {bad} lanes differ from plain"
+    stats["peak"]["max_abs_err"] = 0
+    x = to_dev(rng.uniform(0.5, 1.5, PEAK_THREADS).astype(np.float32))
+    rates, times = {}, {}
+    for nch in cuda_solver.PEAK_CHAINS:
+        steps = PEAK_CHAIN_STEPS // nch
+        times[nch] = cuda_ms(lambda: cuda_solver.peak_chains(x, nch, steps))
+        rates[nch] = 2 * PEAK_THREADS * steps * nch / (times[nch] * 1e-3)
+        log(f"T3 fp32 peak: {nch:2d} chains x {steps} steps on "
+            f"{PEAK_THREADS} threads: {times[nch]:.4f} ms, {rates[nch]:.4e} "
+            f"separate fp32 ops/s [{card}]")
+    rate = max(rates.values())
+    steps = PEAK_CHAIN_STEPS // 16
+    stats["peak"].update(ms=times[16], plain_ms=cuda_ms(
+        lambda: cuda_solver.peak_chains_plain(x, 16, steps), 1),
+        **bound_row(2 * PEAK_THREADS * 4, 2 * PEAK_THREADS * steps * 16,
+                    rate),
+        variants=[{"what": f"{nch} chains x {PEAK_CHAIN_STEPS // nch} steps "
+                           f"on {PEAK_THREADS} threads", "ms": times[nch],
+                   "fp32_ops_per_s": rates[nch]}
+                  for nch in cuda_solver.PEAK_CHAINS])
+    log(f"T3 fp32 peak: {rate:.4e} separate fp32 ops/s measured, "
+        f"{PEAK_FP32_OPS_PER_S:.4e} from the data sheet "
+        f"({100 * rate / PEAK_FP32_OPS_PER_S:.1f}%) [{card}]")
+    return rate
 
 
 def _random_case(rng, B, random_pix):
@@ -460,16 +541,115 @@ def phase_kernels_vs_plain(torch, stats):
         f"{', '.join(FLAG_NAMES[f] for f, _ in FUSED_FLAG_SETS)}; hb,wb in "
         f"1x13, 9x1, 1x1, 9x13 and two 5x7 images back to back; rebalance "
         f"on/off; pixels emitted or not)")
+    n = 0
+    given_sets = ([(f, False, False) for f in (0, DIAGONALS)]
+                  + [(f, True, joint) for f, joint in FUSED_FLAG_SETS])
+    for flags, fused, joint in given_sets:
+        for reb in (True, False):
+            for want_pix in (True, False):
+                for B in (1, 13, 117):
+                    case = _given_case(rng, B, fused, joint)
+                    views = [case]
+                    if B == 117:        # row chunks of a 9x13 plane
+                        views += [_chunk(case, r0, nrows, 13)
+                                  for r0, nrows in CHUNKS]
+                    for coef, nbhd, image2, tabs in views:
+                        err = check_given(torch, fused, coef, nbhd, image2,
+                                          tabs, flags, reb, want_pix)
+                        key = given_key(fused, joint)
+                        stats[key]["max_abs_err"] = max(
+                            stats[key]["max_abs_err"], err)
+                        n += 1
+    names = ", ".join(FLAG_NAMES[f] for f, _ in FUSED_FLAG_SETS)
+    log(f"B5/B6 vs plain: {n} small cases bit-identical (B5 at flags 0 and "
+        f"DIAGONALS, B6 at {names}; B = 1, 13, 117 and row chunks (r0, "
+        f"rows) {CHUNKS} of a 9x13 plane as column-slice views; rebalance "
+        f"on/off; pixels emitted or not)")
+
+
+# row chunks (first row, rows) of the 9x13 plane: the first, middle and
+# last rows
+CHUNKS = ((0, 2), (4, 3), (8, 1))
+
+
+def given_key(fused, joint):
+    if not fused:
+        return "solve_rebalance"
+    return "solve_fused_joint" if joint else "solve_fused_lq"
+
+
+def _given_case(rng, B, fused, joint):
+    """Random coefficients and a random materialised neighbourhood: the
+    border lines int32[32, B] (B5) or halos int32[100, B] (B6), and
+    image2 int32[100, B] under JOINT_YUV."""
+    coef, _, tabs = _random_case(rng, B, True)
+    nbhd = to_dev(rng.integers(0, 256, (100 if fused else 32, B)).astype(
+        np.int32))
+    image2 = (to_dev(rng.integers(0, 256, (100, B)).astype(np.int32))
+              if joint else None)
+    return coef, nbhd, image2, tabs
+
+
+def _chunk(case, r0, nrows, wb):
+    """Block rows [r0, r0 + nrows) of a whole-plane case, as views."""
+    coef, nbhd, image2, tabs = case
+    s = slice(r0 * wb, (r0 + nrows) * wb)
+    return (coef[:, s], nbhd[:, s], None if image2 is None else image2[:, s],
+            tabs)
+
+
+def check_given(torch, fused, coef, nbhd, image2, tabs, flags, reb,
+                want_pix=False):
+    """B6 (``fused``) or B5 vs the plain version on one input; returns the
+    max |err|."""
+    if fused:
+        got = cuda_solver.solve_fused(coef, nbhd, image2, *tabs, flags, reb,
+                                      want_pix)
+        want = plain_solve_fused(coef, nbhd, image2, *tabs, flags, reb,
+                                 want_pix)
+    else:
+        got = cuda_solver.solve_rebalance(coef, nbhd, *tabs, flags, reb,
+                                          want_pix)
+        want = plain_solve_rebalance(coef, nbhd, *tabs, flags, reb, want_pix)
+    torch.cuda.synchronize()
+    assert (got[1] is None) == (not want_pix)
+    err = max_abs_err(got[0], want[0])
+    if want_pix:
+        err = max(err, max_abs_err(got[1], want[1]))
+    name = ("B6" if fused else "B5") + (" (joint)" if image2 is not None
+                                        else "")
+    assert err == 0, (f"{name} differs from plain at n={coef.shape[1]} "
+                      f"ld={coef.stride(0)} flags={flags} reb={reb} "
+                      f"want_pix={want_pix} (max |err| {err})")
+    return err
 
 
 def phase_golden(torch):
+    """Each golden case on the fused path and on the progress path, per
+    iteration and with row chunks at the finest precision: a callback
+    that never cancels leaves the output as without one."""
+    calls = []
+
+    def count(userdata, cur, mx):
+        calls.append((cur, mx))
+        return 0
+
     for case in GOLDEN_CASES:
-        res = engine.smooth(golden_image(case), golden_opts(case), DEVICE)
-        got = digest(res.coefs, res.stop, res.upsampled)
-        assert got == GOLDEN[case[0]], (
-            f"golden {case[0]}: {got} != {GOLDEN[case[0]]}")
+        img, opts = golden_image(case), golden_opts(case)
+        for path, kw in (("fused", {}), ("progress", {"progress": count}),
+                         ("precise", {"progress": count, "precise": True,
+                                      "progprec": -1})):
+            res = engine.smooth(img, QsOptions(flags=opts.flags,
+                                               niter=opts.niter, **kw),
+                                DEVICE)
+            got = digest(res.coefs, res.stop, res.upsampled)
+            assert got == GOLDEN[case[0]], (
+                f"golden {case[0]} ({path} path): {got} != "
+                f"{GOLDEN[case[0]]}")
     log(f"golden digests of the JAX package reproduced on the card: "
-        f"{len(GOLDEN_CASES)} cases")
+        f"{len(GOLDEN_CASES)} cases, each on the fused path and on the "
+        f"progress path per iteration and with row chunks ({len(calls)} "
+        f"callbacks)")
 
 
 def _plane_inputs(img, ci):
@@ -486,11 +666,13 @@ def _plane_inputs(img, ci):
     return coef, plain_idct_pix(coef), tabs, hb, wb
 
 
-def phase_full_plane(torch, img, stats, card):
+def phase_full_plane(torch, img, stats, card, t3_rate):
     """Every kernel vs plain on the main path's largest planes of the
-    12 MP photo -- B1, B2 and B4 on its 375x500 luma plane, B3 on its
-    188x250 chroma plane, image2 from the luma -- and the per-kernel
-    numbers of the JSON line."""
+    12 MP photo -- B1, B2, B4, B5 and B6 (LQ) on its 375x500 luma plane,
+    B3 and B6 (JOINT) on its 188x250 chroma plane, image2 from the luma,
+    B5/B6's neighbourhoods materialised from the whole plane as the
+    progress path does -- and the per-kernel numbers of the JSON line:
+    each kernel's first timed configuration, the others as variants."""
     coef, pix, tabs, hb, wb = _plane_inputs(img, 0)
     B = hb * wb
     for flags in (0, DIAGONALS):
@@ -508,59 +690,98 @@ def phase_full_plane(torch, img, stats, card):
                           hbc, wbc)
         stats["solve_fused_pix_joint"]["max_abs_err"] = max(
             stats["solve_fused_pix_joint"]["max_abs_err"], err)
-    log(f"kernels vs plain: full {hb}x{wb} luma plane (B1; B2 at flags 0 "
-        f"and DIAGONALS; B4 at q0) and {hbc}x{wbc} chroma plane (B3 at q6, "
-        f"q5 and q2 flags) bit-identical")
+    borders = engine.neighbourhood(pix, None, 0, hb, wb)
+    halo = engine.neighbourhood(pix, None, Q_FLAGS[0], hb, wb)
+    chalo = engine.neighbourhood(cpix, image2, Q_FLAGS[6], hbc, wbc)
+    given = [(False, coef, borders, None, tabs, f) for f in (0, DIAGONALS)]
+    given += [(True, coef, halo, None, tabs, Q_FLAGS[0])]
+    given += [(True, ccoef, chalo, image2, ctabs, f)
+              for f in (Q_FLAGS[6], Q_FLAGS[2])]
+    for fused, c, nbhd, i2, t, flags in given:
+        err = check_given(torch, fused, c, nbhd, i2, t, flags, True)
+        key = given_key(fused, i2 is not None)
+        stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+    log(f"kernels vs plain: full {hb}x{wb} luma plane (B1; B2 and B5 at "
+        f"flags 0 and DIAGONALS; B4 and B6 at q0) and {hbc}x{wbc} chroma "
+        f"plane (B3 at q6, q5 and q2 flags; B6 at q6 and q2) bit-identical")
 
-    def timed(name, fn, plain, nbytes, ops, what, plain_reps=3):
-        row = {"ms": cuda_ms(fn), "plain_ms": cuda_ms(plain, plain_reps)}
-        row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+    def timed(key, name, fn, plain, nbytes, ops, what, plain_reps=3):
+        row = {"ms": cuda_ms(fn), "plain_ms": cuda_ms(plain, plain_reps),
+               **bound_row(nbytes, ops, t3_rate)}
         log(f"{name} {what}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}) [{card}]")
-        return row
+            f"({row['bound_by']}; {row['bound_ms_t3']:.4f} ms at T3's fp32 "
+            f"rate) [{card}]")
+        variant = {"what": what, **row}
+        if "ms" in stats[key]:
+            stats[key].setdefault("variants", []).append(variant)
+        else:
+            stats[key].update(row, variants=[variant])
 
     # bytes: each input read once, each output written once (coefficient
     # and pixel planes int32[64, B], image2 int32[100, B], tables once)
     blk = 64 * 4
-    stats["idct_pix"].update(timed(
-        "B1 idct_pix", lambda: cuda_solver.idct_pix(coef),
-        lambda: plain_idct_pix(coef), B * blk * 2, 0,
-        f"on {B} blocks"))
+    terms144 = sweep_terms(0) * FP32_OPS_PER_TERM
+    terms242 = sweep_terms(DIAGONALS) * FP32_OPS_PER_TERM
+    timed("idct_pix", "B1 idct_pix", lambda: cuda_solver.idct_pix(coef),
+          lambda: plain_idct_pix(coef), B * blk * 2, 0, f"on {B} blocks")
     args = (coef, pix, *tabs, 0, True, hb, wb)
-    stats["solve_rebalance_pix"].update(timed(
-        "B2 solve_rebalance_pix",
-        lambda: cuda_solver.solve_rebalance_pix(*args),
-        lambda: plain_solve_rebalance_pix(*args),
-        B * blk * 4 + 64 * 144 * 4,
-        B * sweep_terms(0) * FP32_OPS_PER_TERM,
-        f"on {B} blocks (q3 pass, NT 144)"))
+    timed("solve_rebalance_pix", "B2 solve_rebalance_pix",
+          lambda: cuda_solver.solve_rebalance_pix(*args),
+          lambda: plain_solve_rebalance_pix(*args),
+          B * blk * 4 + 64 * 144 * 4, B * terms144,
+          f"on {B} blocks (q3 pass, NT 144)")
     args242 = (coef, pix, *tabs, DIAGONALS, True, hb, wb)
-    timed("B2 solve_rebalance_pix", lambda: cuda_solver.solve_rebalance_pix(
-        *args242), lambda: plain_solve_rebalance_pix(*args242),
-        B * blk * 4 + 64 * 242 * 4,
-        B * sweep_terms(DIAGONALS) * FP32_OPS_PER_TERM,
-        f"on {B} blocks (q4-q6 luma pass, NT 242)", plain_reps=1)
+    timed("solve_rebalance_pix", "B2 solve_rebalance_pix",
+          lambda: cuda_solver.solve_rebalance_pix(*args242),
+          lambda: plain_solve_rebalance_pix(*args242),
+          B * blk * 4 + 64 * 242 * 4, B * terms242,
+          f"on {B} blocks (q4-q6 luma pass, NT 242)", plain_reps=1)
     lq = (coef, pix, None, *tabs, Q_FLAGS[0], True, hb, wb)
-    stats["solve_fused_pix_lq"].update(timed(
-        "B4 solve_fused_pix (lq)", lambda: cuda_solver.solve_fused_pix(*lq),
-        lambda: plain_solve_fused_pix(*lq), B * blk * 4,
-        B * LQ_PREAMBLE_OPS, f"on {B} blocks (q0 pass)"))
+    timed("solve_fused_pix_lq", "B4 solve_fused_pix (lq)",
+          lambda: cuda_solver.solve_fused_pix(*lq),
+          lambda: plain_solve_fused_pix(*lq), B * blk * 4,
+          B * LQ_PREAMBLE_OPS, f"on {B} blocks (q0 pass)")
     j6 = (ccoef, cpix, image2, *ctabs, Q_FLAGS[6], True, hbc, wbc)
-    stats["solve_fused_pix_joint"].update(timed(
-        "B3 solve_fused_pix (joint)",
-        lambda: cuda_solver.solve_fused_pix(*j6),
-        lambda: plain_solve_fused_pix(*j6),
-        Bc * (blk * 4 + 100 * 4) + 64 * 242 * 4,
-        Bc * (JOINT_PREAMBLE_OPS
-              + sweep_terms(DIAGONALS) * FP32_OPS_PER_TERM),
-        f"on {Bc} blocks (q6 chroma pass, sweep NT 242)"))
+    timed("solve_fused_pix_joint", "B3 solve_fused_pix (joint)",
+          lambda: cuda_solver.solve_fused_pix(*j6),
+          lambda: plain_solve_fused_pix(*j6),
+          Bc * (blk * 4 + 100 * 4) + 64 * 242 * 4,
+          Bc * (JOINT_PREAMBLE_OPS + terms242),
+          f"on {Bc} blocks (q6 chroma pass, sweep NT 242)")
     j2 = (ccoef, cpix, image2, *ctabs, Q_FLAGS[2], True, hbc, wbc)
-    timed("B3 solve_fused_pix (joint)",
+    timed("solve_fused_pix_joint", "B3 solve_fused_pix (joint)",
           lambda: cuda_solver.solve_fused_pix(*j2),
           lambda: plain_solve_fused_pix(*j2), Bc * (blk * 4 + 100 * 4),
           Bc * JOINT_PREAMBLE_OPS, f"on {Bc} blocks (q2 chroma pass, no "
           f"sweep)")
+    # B5/B6 as the progress path calls them: materialised neighbourhoods
+    # (borders int32[32, B], halos int32[100, B]) in, coefficients out
+    for flags, nt, terms in ((0, 144, terms144), (DIAGONALS, 242, terms242)):
+        a5 = (coef, borders, *tabs, flags, True)
+        timed("solve_rebalance", "B5 solve_rebalance",
+              lambda: cuda_solver.solve_rebalance(*a5),
+              lambda: plain_solve_rebalance(*a5),
+              B * (64 + 32 + 64) * 4 + 64 * nt * 4, B * terms,
+              f"on {B} blocks (NT {nt})", plain_reps=1)
+    a6 = (ccoef, chalo, image2, *ctabs, Q_FLAGS[6], True)
+    timed("solve_fused_joint", "B6 solve_fused (joint)",
+          lambda: cuda_solver.solve_fused(*a6),
+          lambda: plain_solve_fused(*a6),
+          Bc * (64 + 100 + 100 + 64) * 4 + 64 * 242 * 4,
+          Bc * (JOINT_PREAMBLE_OPS + terms242),
+          f"on {Bc} blocks (q6 chroma pass, sweep NT 242)", plain_reps=1)
+    a2 = (ccoef, chalo, image2, *ctabs, Q_FLAGS[2], True)
+    timed("solve_fused_joint", "B6 solve_fused (joint)",
+          lambda: cuda_solver.solve_fused(*a2),
+          lambda: plain_solve_fused(*a2), Bc * (64 + 100 + 100 + 64) * 4,
+          Bc * JOINT_PREAMBLE_OPS,
+          f"on {Bc} blocks (q2 chroma pass, no sweep)")
+    a0 = (coef, halo, None, *tabs, Q_FLAGS[0], True)
+    timed("solve_fused_lq", "B6 solve_fused (lq)",
+          lambda: cuda_solver.solve_fused(*a0),
+          lambda: plain_solve_fused(*a0), B * (64 + 100 + 64) * 4,
+          B * LQ_PREAMBLE_OPS, f"on {B} blocks (q0 pass)")
     log(f"  bounds count {sweep_terms(0)} / {sweep_terms(DIAGONALS)} "
         f"non-zero-weight sweep terms per block and pass (NT 144 / 242) x "
         f"{FP32_OPS_PER_TERM} fp32 ops, {JOINT_PREAMBLE_OPS} fp32 ops of "
@@ -662,10 +883,132 @@ def phase_main(torch, runs, card):
     return total, summaries
 
 
-def device_breakdown(torch, run, dev_ms, card):
-    """Kernel time by name over one device run (torch.profiler), and the
-    share of the CUDA-event time the card was busy.  Returns the busy ms,
-    the kernel launches and the ms of each of B1-B4."""
+def recorder(calls, cancel_at=0):
+    """A progress callback that records (cur, max) and cancels at call
+    ``cancel_at`` (never when 0)."""
+    def cb(userdata, cur, mx):
+        calls.append((cur, mx))
+        return bool(cancel_at) and len(calls) >= cancel_at
+    return cb
+
+
+def expected_progress(img, opts):
+    """The (cur, max) trace and the solver passes of each component of a
+    progress run that never cancels, worked out from the image's
+    geometry and the reference's accounting (quantsmooth.h:2474-2482,
+    2632-2665; libjpegqs.h:42-44), for an image whose every quant table
+    is above 1 and below 0x800."""
+    comps, n = img.components, opts.niter
+    prog_max = sum(c.height_in_blocks * c.v_samp_factor * n for c in comps)
+    prec = 20 if opts.progprec == 0 else opts.progprec
+    prec = prog_max if prec < 0 else prec
+    thr = -(-prog_max // prec)
+    count, trace, passes = 0, [], []
+    for c in comps:
+        hb, v = c.height_in_blocks, c.v_samp_factor
+        k = 0
+        for _ in range(n):
+            rows = 0
+            while rows < hb:
+                step = (min(max(1, -(-(thr - count) // v)), hb - rows)
+                        if opts.precise else hb)
+                rows += step
+                count += step * v
+                k += 1
+                if count >= thr:
+                    cur = prec * count // prog_max
+                    thr = -(-((cur + 1) * prog_max) // prec)
+                    trace.append((cur, prec))
+        passes.append(k)
+    return trace, passes
+
+
+def phase_progress(torch, img, card):
+    """The progress path at full width, through ``smooth`` with a
+    recording callback: q6 n3 per iteration and with PRECISE_PROGRESS row
+    chunks (progprec 20), q2 n3 per iteration.  Per run: the trace and
+    the launch counts (reset just before, read just after) against
+    expected_progress, the planes against the fused run and, trace too,
+    against the plain path on the card; then a q6 precise run cancelled
+    at its third callback against the plain path.  Returns the summed
+    launch counts and one summary line per run."""
+    total = dict.fromkeys(cuda_solver.LAUNCHES, 0)
+    summaries = []
+    fused = {}
+    for name, q, kw in (("q6 n3", 6, {}),
+                        ("q6 n3 precise", 6, {"precise": True}),
+                        ("q2 n3", 2, {})):
+        calls = []
+        opts = QsOptions.from_quality(q, 3, progress=recorder(calls), **kw)
+        cuda_solver.reset_launches()
+        res = jpegqs_tpu_torch.smooth(img, opts)
+        torch.cuda.synchronize()
+        counts = dict(cuda_solver.LAUNCHES)
+        trace, passes = expected_progress(img, opts)
+        assert calls == trace, f"progress {name}: trace {calls} != {trace}"
+        expect = dict.fromkeys(counts, 0)
+        # B1: each iteration's pixels, then the plane the colour path reads
+        expect["idct_pix"] = sum(opts.niter + 1 for _ in img.components)
+        expect["solve_rebalance" if q == 6 else "solve_fused_lq"] = passes[0]
+        expect["solve_fused_joint"] = passes[1] + passes[2]
+        assert counts == expect, f"progress {name}: launches {counts} != " \
+                                 f"{expect}"
+        for k, v in counts.items():
+            total[k] += v
+        _check_planes(img, res, opts)
+        if q not in fused:
+            fused[q] = jpegqs_tpu_torch.smooth(img,
+                                               QsOptions.from_quality(q, 3))
+        assert _same(res, fused[q]), f"progress {name}: != the fused path"
+        plain_calls = []
+        with plain_kernels():
+            plain = engine.smooth(img, QsOptions.from_quality(
+                q, 3, progress=recorder(plain_calls), **kw))
+        assert plain_calls == calls and _same(res, plain), (
+            f"progress {name}: kernel path != plain path")
+        quiet = QsOptions.from_quality(q, 3, progress=recorder([]), **kw)
+        e2e_ms = host_ms(lambda: jpegqs_tpu_torch.smooth(img, quiet), 3)
+        busy, n_launch, by_kernel = device_breakdown(
+            torch, lambda: jpegqs_tpu_torch.smooth(img, quiet), e2e_ms, card,
+            "smooth() run")
+        mp = img.width * img.height / 1e6
+        log(f"progress {name}: {len(calls)} callbacks, passes per component "
+            f"{passes}, launches {counts}; trace and launches as worked out, "
+            f"bit-identical to the fused run and to the plain path on the "
+            f"card")
+        log(f"  smooth() {e2e_ms:.3f} ms ({mp / e2e_ms * 1e3:.1f} MP/s), "
+            f"kernels {busy:.3f} ms busy [{card}]")
+        split = ", ".join(f"{k} {v:.3f} ms" for k, v in by_kernel.items()
+                          if v > 0)
+        summaries.append(
+            f"summary progress {name}: smooth() {e2e_ms:.3f} ms, "
+            f"{len(calls)} callbacks, card busy {busy:.3f} ms "
+            f"({100 * busy / e2e_ms:.1f}%), {n_launch} kernels, {split}, "
+            f"glue {busy - sum(by_kernel.values()):.3f} ms [{card}]")
+    calls, plain_calls = [], []
+    res = jpegqs_tpu_torch.smooth(img, QsOptions.from_quality(
+        6, 3, precise=True, progress=recorder(calls, 3)))
+    with plain_kernels():
+        plain = engine.smooth(img, QsOptions.from_quality(
+            6, 3, precise=True, progress=recorder(plain_calls, 3)))
+    want = expected_progress(img, QsOptions.from_quality(6, 3,
+                                                         precise=True))[0]
+    assert calls == plain_calls == want[:3], f"cancel: trace {calls}"
+    assert res.stop == 1 and res.upsampled is None and _same(res, plain), \
+        "cancel: kernel path != plain path"
+    moved = sum(int(np.count_nonzero(a != b))
+                for a, b in zip(res.coefs, fused[6].coefs))
+    log(f"progress q6 n3 precise, cancelled at the 3rd callback {calls[-1]}: "
+        f"stop 1, no upsampled planes, {moved} coefficients differ from the "
+        f"full run; bit-identical to the plain path on the card")
+    log(f"progress path launches (all runs): {total}")
+    return total, summaries
+
+
+def device_breakdown(torch, run, dev_ms, card, window="device run"):
+    """Kernel time by name over one run (torch.profiler), and the share
+    of the ``dev_ms`` window the card was busy.  Returns the busy ms, the
+    kernel launches and the ms of each of B1-B6."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -680,7 +1023,7 @@ def device_breakdown(torch, run, dev_ms, card):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"  profiler: kernels {busy:.3f} ms busy in a {dev_ms:.3f} ms "
-        f"device run ({100 * busy / dev_ms:.1f}%), {sum(r[1] for r in rows)}"
+        f"{window} ({100 * busy / dev_ms:.1f}%), {sum(r[1] for r in rows)}"
         f" kernel launches [{card}]; top:")
     for t, n, k in rows[:6]:
         log(f"    {t:.3f} ms x{n} {k[:90]}")
@@ -689,7 +1032,10 @@ def device_breakdown(torch, run, dev_ms, card):
         for name, marker in (("B1", "idct_pix_kernel"),
                              ("B2", "solve_rebalance_pix_kernel"),
                              ("B3", "solve_fused_pix_kernel<0"),
-                             ("B4", "solve_fused_pix_kernel<1"))}
+                             ("B4", "solve_fused_pix_kernel<1"),
+                             ("B5", "solve_rebalance_kernel"),
+                             ("B6 joint", "solve_fused_kernel<0"),
+                             ("B6 lq", "solve_fused_kernel<1"))}
     return busy, sum(r[1] for r in rows), by_kernel
 
 
@@ -725,7 +1071,13 @@ REPLACES = {
     "solve_rebalance_pix": "jpegqs_tpu/ops/pallas_solver.py:902",
     "solve_fused_pix_joint": "jpegqs_tpu/ops/pallas_solver.py:919",
     "solve_fused_pix_lq": "jpegqs_tpu/ops/pallas_solver.py:919",
+    "solve_rebalance": "jpegqs_tpu/ops/pallas_solver.py:782",
+    "solve_fused_joint": "jpegqs_tpu/ops/pallas_solver.py:824",
+    "solve_fused_lq": "jpegqs_tpu/ops/pallas_solver.py:824",
+    "peak": "tools/vpu_peak.py:50",
 }
+# T3 measures the card; no path of the engine runs it
+OFF_PATH = ("peak",)
 
 
 def main() -> int:
@@ -745,6 +1097,8 @@ def main() -> int:
     phase_build()
     phase_canaries(torch)
     stamp("build, canaries")
+    t3_rate = phase_peak(torch, stats, card)
+    stamp("T3 fp32 peak")
     phase_kernels_vs_plain(torch, stats)
     stamp("small kernel-vs-plain cases")
     phase_golden(torch)
@@ -755,7 +1109,7 @@ def main() -> int:
     log(f"inputs: synthetic {COLOR_HW[1]}x{COLOR_HW[0]} 4:2:0 and "
         f"{GRAY_HW[1]}x{GRAY_HW[0]} gray, IJG q75, "
         f"{time.perf_counter() - t0:.1f} s")
-    phase_full_plane(torch, color, stats, card)
+    phase_full_plane(torch, color, stats, card, t3_rate)
     stamp("full planes")
     # the q3 runs of the first slice at depth 1, to keep the whole script
     # near its first run time as paths are added
@@ -770,18 +1124,29 @@ def main() -> int:
         ("gray_2mp", gray, 0, 3, {"idct_pix": 1, "solve_fused_pix_lq": 3}),
     ), card)
     stamp("main path")
+    progress_launches, progress_summaries = phase_progress(torch, color, card)
+    stamp("progress path")
+    for k, v in progress_launches.items():
+        launches[k] += v
+    unused = [k for k in launches if k not in OFF_PATH and not launches[k]]
+    assert not unused, f"kernels the main paths never launched: {unused}"
     phase_transcode(torch, card)
-    for line in summaries:
+    for line in summaries + progress_summaries:
         log(line)
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "jpegqs_tpu_torch/csrc/solver.cu",
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
-         "bound_ms": stats[name]["bound_ms"],
-         "bound_by": stats[name]["bound_by"], "library_ms": None}
-        for name in cuda_solver.LAUNCHES]}), flush=True)
+    rows = []
+    for name in cuda_solver.LAUNCHES:
+        s = stats[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "jpegqs_tpu_torch/csrc/solver.cu",
+            "replaces": REPLACES[name], "launches": launches[name],
+            "on_path": name not in OFF_PATH,
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "bound_ms_t3": s["bound_ms_t3"],
+            "library_ms": None,
+            **({"variants": s["variants"]} if "variants" in s else {})})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

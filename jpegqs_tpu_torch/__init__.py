@@ -4,9 +4,10 @@ Quantization-constrained JPEG restoration (the capabilities of
 ilyakurdyukov/jpeg-quantsmooth) with its solver running as CUDA kernels
 written for Hopper (csrc/solver.cu).  Bit-identical to the JAX package
 ``jpegqs_tpu`` at every quality level, q0-q6, on gray and YCbCr colour
-at any sampling factors; progress callbacks, batching, multi-GPU and
-``decode_smoothed`` are not ported yet.  It imports neither JAX nor
-anything of ``jpegqs_tpu``.
+at any sampling factors, with or without a progress callback (per
+iteration, or per row chunk with ``precise``; a truthy return
+cancels).  Batching, multi-GPU and ``decode_smoothed`` are not ported
+yet.  It imports neither JAX nor anything of ``jpegqs_tpu``.
 
 Public API:
   smooth(img, opts, device=None)            -- coefficient-level engine

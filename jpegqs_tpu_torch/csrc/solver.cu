@@ -639,6 +639,146 @@ solve_fused_pix_kernel(const FusedArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// B5 and B6: the passes of B2 and B3/B4 on a GIVEN neighbourhood, the one
+// the progress path materialises from the whole pre-iteration plane:
+// border lines int32[32, .] (top, bottom, left, right, eight rows each) for
+// B5, 10x10 halos int32[100, .] (row-major) for B6.  A block reads its
+// neighbourhood at its own index, nbhd[j * ld + b]: no hb/wb, no edge logic.
+// The inputs may be row chunks of whole planes -- n blocks, each input with
+// its own row stride ld_* (the plane's block count), so a chunk after the
+// first reads its own rows -- and the outputs are contiguous [64, n].  An
+// output never aliases an input.  pix_out may be NULL.
+// ---------------------------------------------------------------------------
+struct GivenArgs {
+  const int* coef_in;
+  const int* nbhd;    // [32, .] borders (B5) or [100, .] halos (B6)
+  const int* image2;  // [100, .] downsampled-luma halos (B6, kJoint only)
+  int* coef_out;
+  int* pix_out;       // may be NULL
+  const int* div;
+  const int* x1;
+  const int* qshr;
+  const float* tab;   // [64, NT] (NT > 0 only)
+  int n, ld_coef, ld_nbhd, ld_image2, do_rebalance;
+};
+
+// B5: the k=63..1 sweep + rebalance (+ pixels) on given border lines.
+// Replaces jpegqs_tpu/ops/pallas_solver.py solve_rebalance (_solve_tiled
+// aux_mode="halo", preamble None: the [32, B] borders, the _GROUPS sweep of
+// _solve_kernel, _rebalance_tile).
+// Bound on this card: fp32 operations, as B2 -- 9 per term of non-zero table
+// weight per block (7,648 terms at NT 144, 13,308 at NT 242) against
+// (64 + 32 + 64) x 4 B of traffic per block.
+// Design: B2 with its border gather replaced by 32 planar loads; the sweep,
+// rebalance and emit are B2's device functions.
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+solve_rebalance_kernel(const GivenArgs a) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= a.n) return;
+  const int* __restrict__ div = a.div;
+  const int* __restrict__ x1 = a.x1;
+  const int* __restrict__ qshr = a.qshr;
+
+  int c[64];
+#pragma unroll
+  for (int k = 0; k < 64; ++k) c[k] = a.coef_in[(size_t)k * a.ld_coef + b];
+  int v[96];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) v[64 + j] = a.nbhd[(size_t)j * a.ld_nbhd + b];
+
+  sweep<NT>(c, v, div, x1, qshr, a.tab);
+  if (a.do_rebalance) rebalance(c, div, x1, qshr);
+  emit_block(c, a.coef_out, a.pix_out, (size_t)a.n, b);
+}
+
+// B6 (PRE = kJoint or kLowQuality): the preamble + fdct_clamp, the sweep
+// unless NT == 0 (its borders are the halo's edge lines, as in B3), the
+// rebalance and the pixels, on a given halo.
+// Replaces jpegqs_tpu/ops/pallas_solver.py solve_fused (_solve_tiled
+// aux_mode="halo", preamble "joint" / "lq").
+// Bound on this card: with the sweep (JOINT at q5/q6) fp32 operations, as
+// B3; without it (JOINT at q1/q2, LQ at q0-q2) bytes -- (64 + 100 + 100 +
+// 64) x 4 B per block under JOINT, 100 ints fewer under LQ.
+// Design: B3/B4 with the halo read from memory in place of load_halo; the
+// preambles, fdct_clamp, sweep, rebalance and emit are theirs.
+template <int PRE, int NT>
+__global__ void __launch_bounds__(kThreads)
+solve_fused_kernel(const GivenArgs a) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= a.n) return;
+  const int* __restrict__ div = a.div;
+  const int* __restrict__ x1 = a.x1;
+  const int* __restrict__ qshr = a.qshr;
+
+  int c[64];
+#pragma unroll
+  for (int k = 0; k < 64; ++k) c[k] = a.coef_in[(size_t)k * a.ld_coef + b];
+  int h[100];
+#pragma unroll
+  for (int k = 0; k < 100; ++k) h[k] = a.nbhd[(size_t)k * a.ld_nbhd + b];
+
+  float fb[64];
+  if constexpr (PRE == kJoint) {
+    int g[100];
+#pragma unroll
+    for (int k = 0; k < 100; ++k) g[k] = a.image2[(size_t)k * a.ld_image2 + b];
+    joint_fblock(h, g, fb);
+  } else {
+    lq_fblock(h, lq_range(c, div), fb);
+  }
+  fdct_clamp(fb, c, div, x1, qshr);
+
+  if constexpr (NT > 0) {
+    int v[96];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      v[64 + q] = h[1 + q];
+      v[72 + q] = h[91 + q];
+      v[80 + q] = h[(q + 1) * 10];
+      v[88 + q] = h[(q + 1) * 10 + 9];
+    }
+    sweep<NT>(c, v, div, x1, qshr, a.tab);
+  }
+  if (a.do_rebalance) rebalance(c, div, x1, qshr);
+  emit_block(c, a.coef_out, a.pix_out, (size_t)a.n, b);
+}
+
+// ---------------------------------------------------------------------------
+// T3: the card's fp32 peak probe.
+// Replaces tools/vpu_peak.py peak_kernel: NCH independent chains
+// a = a * k + b per thread, n_steps deep, the multiply and the add separate
+// (never an FMA: the solver's fold never fuses), then a left fold of the
+// chains -- 2 fp32 operations per step per chain.  Launched over enough
+// threads to fill every SM; its time gives the rate of separate fp32
+// operations this card sustains.  The constants round as the TPU kernel's
+// np.float32 ones do (a double expression rounded once to float).
+// ---------------------------------------------------------------------------
+template <int NCH>
+__global__ void __launch_bounds__(kThreads)
+peak_kernel(const float* __restrict__ x, float* __restrict__ out,
+            int n_steps, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float x0 = x[i];
+  const float k = 0.99999f;
+  float a[NCH], bb[NCH];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    a[c] = __fmul_rn(x0, (float)(1.0 + 0.001 * c));
+    bb[c] = __fmul_rn(x0, 0.9999f);
+  }
+  for (int s = 0; s < n_steps; ++s) {
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) a[c] = __fadd_rn(__fmul_rn(a[c], k), bb[c]);
+  }
+  float acc = a[0];
+#pragma unroll
+  for (int c = 1; c < NCH; ++c) acc = __fadd_rn(acc, a[c]);
+  out[i] = acc;
+}
+
+// ---------------------------------------------------------------------------
 // Canaries: replace the FMA-contraction and fold-order probes of
 // tests/test_canary.py (_mosaic_muladd, _mosaic_fold) for this build.
 // Written with plain * + / on purpose: they check what the compiler flags
@@ -724,6 +864,72 @@ int jq_solve_fused_pix(const int* coef_in, const int* pix_in,
       solve_fused_pix_kernel<kJoint, 144><<<grid, block, 0, s>>>(a);
     else
       solve_fused_pix_kernel<kJoint, 242><<<grid, block, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// B5: nt is 144 or 242.  ld_* are the row strides of the inputs (elements);
+// the outputs are contiguous [64, n].  pix_out may be NULL.
+int jq_solve_rebalance(const int* coef_in, const int* borders, int* coef_out,
+                       int* pix_out, const int* div, const int* x1,
+                       const int* qshr, const float* tab, int nt, int n,
+                       int ld_coef, int ld_borders, int do_rebalance,
+                       void* stream) {
+  if (nt != 144 && nt != 242) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const GivenArgs a{coef_in, borders, nullptr, coef_out, pix_out,
+                      div,     x1,      qshr,    tab,      n,
+                      ld_coef, ld_borders, 0,    do_rebalance};
+    const dim3 grid(blocks_for(n)), block(kThreads);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (nt == 144)
+      solve_rebalance_kernel<144><<<grid, block, 0, s>>>(a);
+    else
+      solve_rebalance_kernel<242><<<grid, block, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// B6 with the JOINT_YUV preamble when image2 is given (nt 0, 144 or 242),
+// with the LOW_QUALITY one when it is NULL (nt must be 0).  As B5 otherwise.
+int jq_solve_fused(const int* coef_in, const int* halo, const int* image2,
+                   int* coef_out, int* pix_out, const int* div, const int* x1,
+                   const int* qshr, const float* tab, int nt, int n,
+                   int ld_coef, int ld_halo, int ld_image2, int do_rebalance,
+                   void* stream) {
+  if (nt != 0 && nt != 144 && nt != 242) return (int)cudaErrorInvalidValue;
+  if (image2 == nullptr && nt != 0) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const GivenArgs a{coef_in, halo,    image2,    coef_out, pix_out,
+                      div,     x1,      qshr,      tab,      n,
+                      ld_coef, ld_halo, ld_image2, do_rebalance};
+    const dim3 grid(blocks_for(n)), block(kThreads);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (image2 == nullptr)
+      solve_fused_kernel<kLowQuality, 0><<<grid, block, 0, s>>>(a);
+    else if (nt == 0)
+      solve_fused_kernel<kJoint, 0><<<grid, block, 0, s>>>(a);
+    else if (nt == 144)
+      solve_fused_kernel<kJoint, 144><<<grid, block, 0, s>>>(a);
+    else
+      solve_fused_kernel<kJoint, 242><<<grid, block, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// T3: nch is 1, 4 or 16; one thread per element of x / out (n of them).
+int jq_peak(const float* x, float* out, int nch, int n_steps, int n,
+            void* stream) {
+  if (nch != 1 && nch != 4 && nch != 16) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const dim3 grid(blocks_for(n)), block(kThreads);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (nch == 1)
+      peak_kernel<1><<<grid, block, 0, s>>>(x, out, n_steps, n);
+    else if (nch == 4)
+      peak_kernel<4><<<grid, block, 0, s>>>(x, out, n_steps, n);
+    else
+      peak_kernel<16><<<grid, block, 0, s>>>(x, out, n_steps, n);
   }
   return (int)cudaGetLastError();
 }

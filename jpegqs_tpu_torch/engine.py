@@ -21,6 +21,15 @@ UPSAMPLE_UV, the luma pixels (image1); after each chroma component its
 upsampled luma-size coefficients.  Sampling factors up to 2 stay in
 block form; larger ones (4:1:1, 4x2) go through padded planes.
 
+With a progress callback (``opts.progress``) the engine runs the
+reference's progress path instead (_smooth_percomp): per component and
+per iteration the IDCT (B1), the pass's neighbourhood materialised from
+the whole plane, and one pass on it -- B5 ``solve_rebalance`` or B6
+``solve_fused`` -- or, with ``opts.precise``, one pass per row chunk,
+so the callback fires (and may cancel) at the reference's points.  Its
+colour paths always use padded planes.  Both paths give the same
+output when the callback never cancels.
+
 Entropy decode/encode stays on the host (host/jpegio.py).  Output
 planes, upsampled planes and the stop flag are bit-identical to
 ``jpegqs_tpu.engine``.  Entry points run on the card unless the caller
@@ -84,16 +93,30 @@ def _need_downsample(img, flags) -> bool:
             and comps[2].h_samp_factor == 1 and comps[2].v_samp_factor == 1)
 
 
-def check_supported(img, opts: QsOptions) -> None:
-    """Raise NotImplementedError for the paths not ported yet."""
-    if opts.progress is not None:
-        raise NotImplementedError(
-            "progress callbacks are not ported yet (ROADMAP A10)")
-
-
 def int16_wrap(x):
     """Model C's int16 coefficient storage (JCOEF) exactly."""
     return x.to(I16).to(I32)
+
+
+def dequant(coef16, qraw):
+    """Iter-0 dequantization with the crafted-file guard
+    (quantsmooth.h:2596-2610; engine._dequant_stage): coef16 int16[B, 64]
+    -> (planar int16-wrapped int32[64, B], badv bool scalar tensor)."""
+    prod = (coef16.to(I32).T * qraw[:, None]).contiguous()   # planar [64, B]
+    # the guard: OR-reduce(prod + 0x800) >> 12 != 0 (arithmetic shift)
+    badv = ((prod + 0x800) >> 12).ne(0).any()
+    return int16_wrap(prod), badv
+
+
+def dequant_only(coef16, qraw):
+    """The dequantize-only fallback once a crafted file has set stop
+    (quantsmooth.h:2551-2566): int16[B, 64], wrapped, unclamped."""
+    return (coef16.to(I32) * qraw[None, :]).to(I16)
+
+
+def _do_rebalance(flags, luma) -> bool:
+    return not (flags & NO_REBALANCE
+                or (not luma and (flags & NO_REBALANCE_UV)))
 
 
 def component_smooth(coef16, qraw, div, x1, qshr, image2=None, *, hb, wb,
@@ -109,13 +132,9 @@ def component_smooth(coef16, qraw, div, x1, qshr, image2=None, *, hb, wb,
     int32[B, 64], pixels int32[64, B] of the final coefficients before
     the fallback and clamp -- or None without extra_refresh --, badv
     bool scalar tensor)."""
-    prod = (coef16.to(I32).T * qraw[:, None]).contiguous()   # planar [64, B]
-    # the guard: OR-reduce(prod + 0x800) >> 12 != 0 (arithmetic shift)
-    badv = ((prod + 0x800) >> 12).ne(0).any()
-    coef = int16_wrap(prod)
+    coef, badv = dequant(coef16, qraw)
     coef_dq = coef
-    do_reb = not (flags & NO_REBALANCE
-                  or (not luma and (flags & NO_REBALANCE_UV)))
+    do_reb = _do_rebalance(flags, luma)
     fused = image2 is not None or bool(flags & LOW_QUALITY)
     pix = cuda_solver.idct_pix(coef)
     for it in range(niter):
@@ -239,10 +258,22 @@ def _upsample_fdct(pix, image2, image1, plan: ImagePlan):
             image2.reshape(10, 10, -1), image1.reshape(8, 8, -1),
             plan.img_w, plan.img_h, plan.ws, plan.hs, hbl, wbl, hbc, wbc)
         return fdct_round_i16((up - CENTERJSAMPLE).to(F32), hbl, wbl)
-    mem = upsample_chroma(planar.pix_to_plane(pix, hbc, wbc), image2, image1,
-                          plan.img_w, plan.img_h, plan.ws, plan.hs, hbl, wbl)
-    fb = planar.plane_to_fblocks_p((mem - CENTERJSAMPLE).to(F32), hbl, wbl)
-    return fdct_round_i16(fb, hbl, wbl)
+    return upsample_fdct_plane(planar.pix_to_plane(pix, hbc, wbc), image2,
+                               image1, plan.img_w, plan.img_h, plan.ws,
+                               plan.hs, hbl, wbl)
+
+
+def upsample_fdct_plane(padded_chroma, image2, image1, img_w, img_h, ws, hs,
+                        hb_l, wb_l):
+    """UPSAMPLE_UV in plane form: the chroma component's padded pixel
+    plane, the downsampled luma plane (image2) and the luma plane
+    (image1) -> luma-size coefficients int16[hb_l, wb_l, 64]
+    (engine._upsample_fdct_body; reference: quantsmooth.h:2732-2750)."""
+    mem = upsample_chroma(padded_chroma, image2, image1, img_w, img_h, ws,
+                          hs, hb_l, wb_l)
+    fb = planar.plane_to_fblocks_p((mem - CENTERJSAMPLE).to(F32), hb_l,
+                                   wb_l)
+    return fdct_round_i16(fb, hb_l, wb_l)
 
 
 def _luma_products(pix, plan: ImagePlan):
@@ -277,7 +308,7 @@ def run_image(plan: ImagePlan, inputs):
     outs, badvs, ups = [], [], {}
     for k, (p, (coef16, qraw, div, x1, qshr)) in enumerate(
             zip(plan.comps, inputs)):
-        dq16 = (coef16.to(I32) * qraw[None, :]).to(I16)
+        dq16 = dequant_only(coef16, qraw)
         if p.mode == "dequant":
             outs.append(dq16)
             continue
@@ -318,16 +349,223 @@ def _smooth_fused(img, opts: QsOptions, device) -> SmoothResult:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The progress-callback path: one device pass per iteration, or per row
+# chunk under ``precise`` (engine._smooth_percomp and its stages)
+# ---------------------------------------------------------------------------
+
+def neighbourhood(pix, image2, flags, hb, wb):
+    """The cross-block pixel neighbourhood of one pass, materialised
+    from the whole pre-iteration plane pix int32[64, B]: the 10x10
+    halos int32[100, B] when the pass is fused (image2 given or
+    LOW_QUALITY), else the border lines int32[32, B]."""
+    if image2 is not None or flags & LOW_QUALITY:
+        return planar.blocks_halo10(pix.reshape(8, 8, -1), hb,
+                                    wb).reshape(100, -1)
+    return torch.cat(planar.borders_from_blocks(pix.reshape(8, 8, -1), hb,
+                                                wb))
+
+
+def block_pass(coef, nbhd, image2, div, x1, qshr, flags, luma, wb,
+               rows=None):
+    """One smoothing pass over a component (engine.block_pass_p and
+    _block_pass_p): B6 when ``image2`` is given or under LOW_QUALITY,
+    else B5.  coef int32[64, B] the pre-pass coefficients; nbhd from
+    ``neighbourhood``; image2 int32[100, B] downsampled-luma halos or
+    None.  ``rows=(r0, n)`` restricts the pass to block rows [r0, r0+n)
+    (engine._rows_stage_impl): the coefficients, neighbourhood and image2
+    are sliced to them.  Returns the new coefficients of those rows
+    (of every block without ``rows``), int32[64, n * wb]."""
+    if rows is not None:
+        s = slice(rows[0] * wb, (rows[0] + rows[1]) * wb)
+        coef, nbhd = coef[:, s], nbhd[:, s]
+        image2 = None if image2 is None else image2[:, s]
+    do_reb = _do_rebalance(flags, luma)
+    if image2 is not None or flags & LOW_QUALITY:
+        out, _ = cuda_solver.solve_fused(coef, nbhd, image2, div, x1, qshr,
+                                         flags, do_reb)
+    else:
+        out, _ = cuda_solver.solve_rebalance(coef, nbhd, div, x1, qshr,
+                                             flags, do_reb)
+    return out
+
+
+def _smooth_percomp(img, opts: QsOptions, device) -> SmoothResult:
+    """Progress-callback path (engine._smooth_percomp): one device pass
+    per iteration, with the reference's exact progress accounting
+    (quantsmooth.h:2474-2482 init, 2652-2663 per-iteration update;
+    ``progprec`` from libjpegqs.h:42-44: 0 -> 20 steps, < 0 -> the
+    finest resolution) and, with ``opts.precise``, the row chunks of a
+    -DPRECISE_PROGRESS build (2632-2665).  A truthy callback return
+    cancels: the component keeps what its completed iterations or row
+    chunks wrote, stop is set, later components are only dequantized
+    and no upsampled planes come out.  The colour paths always run in
+    plane form here."""
+    res = SmoothResult()
+    comps = img.components
+    res.coefs = [np.asarray(c.coefs, dtype=np.int16).copy() for c in comps]
+    flags = opts.flags
+    need_downsample = _need_downsample(img, flags)
+    num_iter = min(max(opts.niter, 0), ITER_MAX)
+    if num_iter <= 0 and not ((flags & UPSAMPLE_UV) and need_downsample):
+        return res
+
+    stop = 0
+    image1 = None   # luma padded plane (UPSAMPLE_UV)
+    image2 = None   # downsampled luma padded plane (JOINT_YUV)
+    image2_halo = None
+    up_planes = {}
+
+    # progress accounting: prog_next carries every component's full
+    # share, including a skipped component's (no table, val <= 1), as
+    # the reference advances it at the top of every component
+    # (quantsmooth.h:2487-2492)
+    prog_cur = 0
+    prog_next = 0
+    prog_max = sum(c.height_in_blocks * c.v_samp_factor * num_iter
+                   for c in comps)
+    prog_prec = opts.progprec
+    if prog_prec == 0:
+        prog_prec = 20
+    if prog_prec < 0:
+        prog_prec = prog_max
+    prog_thr = (prog_max + prog_prec - 1) // prog_prec if prog_max else 0
+
+    def report_progress():
+        """Threshold-gated callback (quantsmooth.h:2652-2663); a truthy
+        return cancels."""
+        nonlocal prog_thr
+        if prog_cur < prog_thr:
+            return False
+        cur = prog_prec * prog_cur // prog_max
+        prog_thr = ((cur + 1) * prog_max + prog_prec - 1) // prog_prec
+        return bool(opts.progress(opts.userdata, cur, prog_prec))
+
+    for ci, comp in enumerate(comps):
+        prog_cur = prog_next
+        prog_next += comp.height_in_blocks * comp.v_samp_factor * num_iter
+        qraw = np.asarray(comp.quantval, dtype=np.int32)
+        if not qraw.any():
+            continue            # no quant table came with this component
+        hb, wb = comp.height_in_blocks, comp.width_in_blocks
+        extra_refresh = int(image1 is not None
+                            or (ci == 0 and need_downsample))
+        num_iter2 = num_iter
+        val = int(np.bitwise_or.reduce(qraw))
+        if val <= 1:
+            num_iter2 = 0       # already processed (quantsmooth.h:2500-2501)
+        if val >= 0x800:
+            stop = 1            # crafted file (quantsmooth.h:2502-2504)
+        if num_iter2 + extra_refresh == 0:
+            continue
+        coef16 = torch.from_numpy(res.coefs[ci].reshape(hb * wb, 64)).to(
+            device)
+        qraw_t = torch.from_numpy(qraw).to(device)
+        if stop:
+            res.coefs[ci] = dequant_only(coef16, qraw_t).cpu().numpy(
+            ).reshape(hb, wb, 64)
+            continue
+
+        div, x1, qshr = (torch.from_numpy(a).to(device)
+                         for a in make_quant_tables(qraw))
+        luma = ci == 0 or not img.is_ycbcr
+        use_image2 = image2 is not None and bool(flags & JOINT_YUV)
+        if use_image2 and image2_halo is None:
+            image2_halo = planar.padded_plane_to_halo10(
+                image2, hb, wb).reshape(100, -1)
+        img2 = image2_halo if use_image2 else None
+        want_plane = image1 is not None or (ci == 0 and need_downsample)
+
+        coef, badv = dequant(coef16, qraw_t)
+        coef_dq = coef
+        canceled = False
+        if opts.precise:
+            # row chunks cut where the running counter crosses prog_thr;
+            # a chunk reads the whole pre-iteration plane and writes only
+            # its rows, so after a cancel the later rows keep their
+            # previous values (the reference's `if (stop) continue`)
+            prog_inc = comp.v_samp_factor
+            for _ in range(num_iter2):
+                pix = cuda_solver.idct_pix(coef)
+                nbhd = neighbourhood(pix, img2, flags, hb, wb)
+                new = coef.clone()      # updated in place, chunk by chunk
+                rows_done = 0
+                while rows_done < hb:
+                    need = prog_thr - prog_cur
+                    chunk = min(max(1, -(-need // prog_inc)), hb - rows_done)
+                    new[:, rows_done * wb:(rows_done + chunk) * wb] = \
+                        block_pass(coef, nbhd, img2, div, x1, qshr, flags,
+                                   luma, wb, rows=(rows_done, chunk))
+                    rows_done += chunk
+                    prog_cur += chunk * prog_inc
+                    if report_progress():
+                        canceled = True
+                        break
+                coef = new
+                if canceled:
+                    break
+        else:
+            for _ in range(num_iter2):
+                pix = cuda_solver.idct_pix(coef)
+                coef = block_pass(coef, neighbourhood(pix, img2, flags, hb,
+                                                      wb),
+                                  img2, div, x1, qshr, flags, luma, wb)
+                prog_cur += hb * comp.v_samp_factor
+                if report_progress():
+                    canceled = True
+                    break
+        # the final stage (quantsmooth.h:2668-2689): the plane the colour
+        # paths read, the guard's fallback, the +-1023 clamp
+        padded = None
+        if want_plane and not canceled:
+            padded = planar.pix_to_plane(cuda_solver.idct_pix(coef), hb, wb)
+        coef = torch.clamp(torch.where(badv, coef_dq, coef), -1023, 1023)
+        res.coefs[ci] = coef.to(I16).T.contiguous().cpu().numpy().reshape(
+            hb, wb, 64)
+        if canceled or bool(badv):
+            stop = 1
+            continue
+
+        if image1 is not None:
+            hbl, wbl = comps[0].height_in_blocks, comps[0].width_in_blocks
+            up_planes[ci] = upsample_fdct_plane(
+                padded, image2, image1, img.width, img.height,
+                comps[0].h_samp_factor, comps[0].v_samp_factor, hbl,
+                wbl).cpu().numpy()
+        elif ci == 0 and need_downsample:
+            ws, hs = comp.h_samp_factor, comp.v_samp_factor
+            if ws == 1 and hs == 1:
+                image2 = padded
+            else:
+                if flags & UPSAMPLE_UV:
+                    image1 = padded
+                image2 = downsample_plane(
+                    padded, hb, wb, comps[1].height_in_blocks,
+                    comps[1].width_in_blocks, ws, hs)
+
+    if stop:
+        image1 = None
+    if image1 is not None and 1 in up_planes and 2 in up_planes:
+        res.upsampled = (up_planes[1], up_planes[2])
+    res.stop = stop
+    return res
+
+
 def smooth(img, opts: QsOptions, device=None) -> SmoothResult:
     """Run the engine on a decoded-to-coefficients JPEG
     (host.jpegio.JpegImage), on the card unless ``device="cpu"``.
 
-    A device allocation failure degrades to plain host-side
-    dequantization, like the reference's malloc-failure path."""
-    check_supported(img, opts)
+    Without a progress callback the whole image runs as one sequence of
+    device passes with no host round trip between components; with one
+    it runs component by component and pass by pass so the callback
+    can fire (and cancel) between them (_smooth_percomp).  A device
+    allocation failure degrades to plain host-side dequantization, like
+    the reference's malloc-failure path."""
     dev = resolve_device(device)
     try:
-        return _smooth_fused(img, opts, dev)
+        if opts.progress is None:
+            return _smooth_fused(img, opts, dev)
+        return _smooth_percomp(img, opts, dev)
     except torch.cuda.OutOfMemoryError:
         return _smooth_degraded(img, opts)
 

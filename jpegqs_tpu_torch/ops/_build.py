@@ -38,6 +38,11 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _P],
     "jq_solve_fused_pix": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _P],
+    "jq_solve_rebalance": [_P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _P],
+    "jq_solve_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _P],
+    "jq_peak": [_P, _P, _I, _I, _I, _P],
     "jq_canary_muladd": [_P, _P, _P, _P, _I, _P],
     "jq_canary_fold": [_P, _P, _I, _I, _P],
     "jq_canary_divide": [_P, _P, _P, _I, _P],

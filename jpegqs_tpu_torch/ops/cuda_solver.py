@@ -11,13 +11,19 @@ The kernels of csrc/solver.cu:
   (``image2`` given) or B4 with the LOW_QUALITY one: the 10x10 halo from
   the previous pass's pixels, the preamble and its FDCT + interval
   clamp, then B2's sweep unless LOW_QUALITY, the rebalance and the
-  pixels.
+  pixels;
+- ``solve_rebalance`` (B5) and ``solve_fused`` (B6): the passes of B2
+  and B3/B4 on a neighbourhood the caller materialised (border lines
+  or 10x10 halos), the progress path's passes; they take row chunks of
+  whole planes as column-slice views;
+- ``peak_chains`` (T3): the card's fp32 peak probe, on no path.
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version
-(ops/dct.py, ops/planar.py); given CUDA tensors it launches the kernel
-on the current stream or raises -- it never falls back.  ``LAUNCHES``
-counts kernel launches only (never plain-version calls), so a run can
-show that the main path went through the kernels.
+(ops/dct.py, ops/planar.py, ``peak_chains_plain`` here); given CUDA
+tensors it launches the kernel on the current stream or raises -- it
+never falls back.  ``LAUNCHES`` counts kernel launches only (never
+plain-version calls), so a run can show that the main path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ from .dct import idct_islow
 from . import planar
 
 LAUNCHES = {"idct_pix": 0, "solve_rebalance_pix": 0,
-            "solve_fused_pix_joint": 0, "solve_fused_pix_lq": 0}
+            "solve_fused_pix_joint": 0, "solve_fused_pix_lq": 0,
+            "solve_rebalance": 0, "solve_fused_joint": 0,
+            "solve_fused_lq": 0, "peak": 0}
 
 _TAB_CACHE = {}
 
@@ -79,6 +87,24 @@ def _check(t, dtype, shape, name):
                          f"(contiguous={t.is_contiguous()})")
 
 
+def _check_tables(div, x1, qshr):
+    for name, t in (("div", div), ("x1", x1), ("qshr", qshr)):
+        _check(t, torch.int32, (64,), name)
+
+
+def _row_stride(t, rows, n, name):
+    """The row stride of an int32[rows, n] view whose last stride is 1
+    (a row chunk ``x[:, a:b]`` of a whole plane), passed to a kernel as
+    its ``ld``."""
+    ok = (t.dtype == torch.int32 and tuple(t.shape) == (rows, n)
+          and (n <= 1 or t.stride(1) == 1) and n <= t.stride(0) < 2 ** 31)
+    if not ok:
+        raise ValueError(f"{name}: need int32[{rows}, {n}] with last stride "
+                         f"1, got {t.dtype}{list(t.shape)} strides "
+                         f"{t.stride()}")
+    return t.stride(0)
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -123,8 +149,7 @@ def solve_rebalance_pix(coef, pix, div, x1, qshr, flags, do_rebalance, hb,
                                           do_rebalance, hb, wb, want_pix)
     _check(coef, torch.int32, (64, B), "coef")
     _check(pix, torch.int32, (64, B), "pix")
-    for name, t in (("div", div), ("x1", x1), ("qshr", qshr)):
-        _check(t, torch.int32, (64,), name)
+    _check_tables(div, x1, qshr)
     if hb < 1 or wb < 1 or B % (hb * wb):
         raise ValueError(f"B={B} is not a multiple of hb*wb={hb * wb}")
     lib = _build.load()
@@ -168,8 +193,7 @@ def solve_fused_pix(coef, pix, image2, div, x1, qshr, flags, do_rebalance,
     _check(pix, torch.int32, (64, B), "pix")
     if image2 is not None:
         _check(image2, torch.int32, (100, B), "image2")
-    for name, t in (("div", div), ("x1", x1), ("qshr", qshr)):
-        _check(t, torch.int32, (64,), name)
+    _check_tables(div, x1, qshr)
     if hb < 1 or wb < 1 or B % (hb * wb):
         raise ValueError(f"B={B} is not a multiple of hb*wb={hb * wb}")
     lib = _build.load()
@@ -186,6 +210,119 @@ def solve_fused_pix(coef, pix, image2, div, x1, qshr, flags, do_rebalance,
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out, pix_out
+
+
+def solve_rebalance(coef, borders, div, x1, qshr, flags, do_rebalance,
+                    want_pix=False):
+    """One solver pass (B5) on given border lines: coef int32[64, n];
+    borders int32[32, n] (top, bottom, left, right, eight rows each);
+    div/x1/qshr int32[64].  coef and borders may be column-slice views
+    of whole planes (a row chunk).  Returns (coef', pix') with pix' the
+    IDCT of coef', or (coef', None) unless ``want_pix``; the outputs are
+    new contiguous [64, n] tensors."""
+    n = coef.shape[1]
+    tab = solver_tables(flags, coef.device)
+    if _is_cpu(coef, borders, div, x1, qshr, tab):
+        return planar.solve_rebalance(coef, borders, div, x1, qshr, tab,
+                                      do_rebalance, want_pix)
+    ld_coef = _row_stride(coef, 64, n, "coef")
+    ld_borders = _row_stride(borders, 32, n, "borders")
+    _check_tables(div, x1, qshr)
+    lib = _build.load()
+    out = torch.empty((64, n), dtype=torch.int32, device=coef.device)
+    pix_out = torch.empty_like(out) if want_pix else None
+    with torch.cuda.device(coef.device):
+        err = lib.jq_solve_rebalance(
+            coef.data_ptr(), borders.data_ptr(), out.data_ptr(),
+            _ptr(pix_out), div.data_ptr(), x1.data_ptr(), qshr.data_ptr(),
+            tab.data_ptr(), tab.shape[1], n, ld_coef, ld_borders,
+            int(bool(do_rebalance)), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "solve_rebalance")
+    LAUNCHES["solve_rebalance"] += 1
+    return out, pix_out
+
+
+def solve_fused(coef, halo, image2, div, x1, qshr, flags, do_rebalance,
+                want_pix=False):
+    """One fused pass (B6) on given halos: the JOINT_YUV preamble when
+    ``image2`` is given, else the LOW_QUALITY one (which needs
+    ``flags & LOW_QUALITY``); the sweep runs unless ``flags &
+    LOW_QUALITY``.  coef int32[64, n]; halo and image2 int32[100, n]
+    (blocks_halo10, row-major, flattened); any of them may be a
+    column-slice view of a whole plane.  Returns as solve_rebalance."""
+    n = coef.shape[1]
+    if image2 is None and not flags & LOW_QUALITY:
+        raise ValueError("a fused pass needs image2 (JOINT_YUV) or "
+                         "LOW_QUALITY flags")
+    sweep = not flags & LOW_QUALITY
+    tab = solver_tables(flags, coef.device) if sweep else None
+    ts = [t for t in (coef, halo, image2, div, x1, qshr, tab)
+          if t is not None]
+    if _is_cpu(*ts):
+        return planar.solve_fused(coef, halo, image2, div, x1, qshr, tab,
+                                  flags, do_rebalance, want_pix)
+    ld_coef = _row_stride(coef, 64, n, "coef")
+    ld_halo = _row_stride(halo, 100, n, "halo")
+    ld_image2 = (0 if image2 is None
+                 else _row_stride(image2, 100, n, "image2"))
+    _check_tables(div, x1, qshr)
+    lib = _build.load()
+    out = torch.empty((64, n), dtype=torch.int32, device=coef.device)
+    pix_out = torch.empty_like(out) if want_pix else None
+    with torch.cuda.device(coef.device):
+        err = lib.jq_solve_fused(
+            coef.data_ptr(), halo.data_ptr(), _ptr(image2), out.data_ptr(),
+            _ptr(pix_out), div.data_ptr(), x1.data_ptr(), qshr.data_ptr(),
+            _ptr(tab), tab.shape[1] if sweep else 0, n, ld_coef, ld_halo,
+            ld_image2, int(bool(do_rebalance)),
+            torch.cuda.current_stream().cuda_stream)
+    name = "solve_fused_joint" if image2 is not None else "solve_fused_lq"
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out, pix_out
+
+
+PEAK_CHAINS = (1, 4, 16)
+
+
+def peak_chains_plain(x, nch, n_steps):
+    """The plain version of T3: per element of x f32[n], ``nch`` chains
+    a = a * 0.99999 + b (b = x * 0.9999, chain c starting at
+    x * (1 + 0.001 c)), each product and sum its own rounded op, then a
+    left fold of the chains -> f32[n]."""
+    f32 = lambda v: torch.tensor(np.float32(v), dtype=torch.float32,
+                                 device=x.device)
+    start = torch.tensor([np.float32(1.0 + 0.001 * c) for c in range(nch)],
+                         dtype=torch.float32, device=x.device)
+    a = x[None, :] * start[:, None]
+    b = x * f32(0.9999)
+    k = f32(0.99999)
+    for _ in range(n_steps):
+        a = a * k
+        a = a + b
+    acc = a[0]
+    for c in range(1, nch):
+        acc = acc + a[c]
+    return acc
+
+
+def peak_chains(x, nch, n_steps):
+    """T3, the fp32 peak probe: one thread per element of x f32[n] runs
+    ``nch`` (1, 4 or 16) independent mul-then-add chains ``n_steps``
+    deep, 2 * nch * n_steps fp32 operations per element."""
+    if nch not in PEAK_CHAINS:
+        raise ValueError(f"nch must be one of {PEAK_CHAINS}, got {nch}")
+    if _is_cpu(x):
+        return peak_chains_plain(x, nch, n_steps)
+    _check(x, torch.float32, (x.numel(),), "x")
+    lib = _build.load()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.jq_peak(x.data_ptr(), out.data_ptr(), nch, n_steps,
+                          x.numel(), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "peak")
+    LAUNCHES["peak"] += 1
+    return out
 
 
 def _canary_launch(name, out, *args):

@@ -1,10 +1,13 @@
 """Planar-layout passes, eager torch: the plain versions of the solver
 kernels (csrc/solver.cu) and the block-wise colour glue.
 
-- ``solve_rebalance_pix``: plain version of B2 (sweep + rebalance);
-- ``solve_fused_pix``: plain version of B3 (JOINT_YUV preamble) and B4
-  (LOW_QUALITY preamble), the non-Pallas branch of
-  ``jpegqs_tpu.engine.block_pass_p`` composed the way the kernel runs it;
+- ``solve_rebalance``: plain version of B5 (sweep + rebalance on given
+  border lines); ``solve_rebalance_pix``, the plain version of B2,
+  gathers the borders from the previous pass's pixels and calls it;
+- ``solve_fused``: plain version of B6 (the JOINT_YUV or LOW_QUALITY
+  preamble, sweep, rebalance on a given 10x10 halo), the non-Pallas
+  branch of ``jpegqs_tpu.engine.block_pass_p``; ``solve_fused_pix``,
+  the plain version of B3/B4, gathers the halo and calls it;
 - the 10x10 halos, downsample and UPSAMPLE_UV in block form, which run
   as this same eager torch on the card (the JAX package runs them as XLA
   ops, outside any Pallas kernel).
@@ -165,20 +168,39 @@ def rebalance_blocks_p(coef, div, x1, qshr):
     return torch.cat([coef[:1], torch.where(do[None], add, c_ac)])
 
 
+def _with_pix(out, want_pix):
+    """(coef', its IDCT int32[64, B] -- the next pass's pixels) or
+    (coef', None)."""
+    if not want_pix:
+        return out, None
+    B = out.shape[1]
+    return out, idct_islow(out.reshape(8, 8, B)).reshape(64, B)
+
+
+def solve_rebalance(coef, borders, div, x1, qshr, tab, do_rebalance,
+                    want_pix=False):
+    """One solver pass on given border lines, the plain version of
+    kernels B5 and B2: coef int32[64, B]; borders int32[32, B], the
+    top, bottom, left and right lines of each block, eight rows each
+    (``torch.cat(borders_from_blocks(...))``); tab f32[64, NT].
+    Returns (coef', pix' or None) like solve_rebalance_pix.  The inputs
+    may be column slices of larger planes (a row chunk)."""
+    out = solve_blocks_p(coef, tuple(borders.reshape(4, 8, -1).unbind(0)),
+                         div, x1, qshr, tab)
+    if do_rebalance:
+        out = rebalance_blocks_p(out, div, x1, qshr)
+    return _with_pix(out, want_pix)
+
+
 def solve_rebalance_pix(coef, pix, div, x1, qshr, tab, do_rebalance, hb,
                         wb, want_pix=True):
     """One resident solver pass, the plain version of the kernel:
     coef/pix int32[64, B] (pix = the previous pass's pixels, the source
     of the border lines) -> (coef', pix' or None), where pix' is the
     IDCT of coef' (the next pass's pixels)."""
-    B = coef.shape[1]
-    borders = borders_from_blocks(pix.reshape(8, 8, B), hb, wb)
-    out = solve_blocks_p(coef, borders, div, x1, qshr, tab)
-    if do_rebalance:
-        out = rebalance_blocks_p(out, div, x1, qshr)
-    if not want_pix:
-        return out, None
-    return out, idct_islow(out.reshape(8, 8, B)).reshape(64, B)
+    borders = borders_from_blocks(pix.reshape(8, 8, -1), hb, wb)
+    return solve_rebalance(coef, torch.cat(borders), div, x1, qshr, tab,
+                           do_rebalance, want_pix)
 
 
 # ---------------------------------------------------------------------------
@@ -302,17 +324,20 @@ def fdct_clamp_p(fblocks, coef, div, x1, qshr):
     return interval_clamp(c_f32_to_i32(roundf(buf)), a0, div[:, None])
 
 
-def solve_fused_pix(coef, pix, image2, div, x1, qshr, tab, flags,
-                    do_rebalance, hb, wb, want_pix=True):
-    """One fused pass, the plain version of kernels B3/B4.
+def solve_fused(coef, halo, image2, div, x1, qshr, tab, flags, do_rebalance,
+                want_pix=False):
+    """One fused pass on given halos, the plain version of kernels B6
+    and B3/B4 (the non-Pallas branch of
+    ``jpegqs_tpu.engine.block_pass_p``).
 
-    coef, pix int32[64, B] (pix: the previous pass's pixels, the source
-    of the 10x10 halo); image2 int32[100, B] downsampled-luma halos
-    (JOINT_YUV preamble) or None (LOW_QUALITY preamble); tab f32[64, NT]
-    the solver tables, used unless ``flags & LOW_QUALITY``.  Returns
-    (coef', pix' or None) like solve_rebalance_pix."""
+    coef int32[64, B]; halo int32[100, B] the 10x10 pixel neighbourhood
+    of each block (``blocks_halo10``, row-major, flattened); image2
+    int32[100, B] downsampled-luma halos (JOINT_YUV preamble) or None
+    (LOW_QUALITY preamble); tab f32[64, NT] the solver tables, used
+    unless ``flags & LOW_QUALITY``.  Returns (coef', pix' or None) like
+    solve_rebalance.  The inputs may be column slices of larger planes."""
     B = coef.shape[1]
-    halo = blocks_halo10(pix.reshape(8, 8, B), hb, wb)
+    halo = halo.reshape(10, 10, B)
     if image2 is not None:
         fb = joint_yuv_fblocks(halo, image2.reshape(10, 10, B))
     elif flags & LOW_QUALITY:
@@ -326,9 +351,18 @@ def solve_fused_pix(coef, pix, image2, div, x1, qshr, tab, flags,
         out = solve_blocks_p(out, borders, div, x1, qshr, tab)
     if do_rebalance:
         out = rebalance_blocks_p(out, div, x1, qshr)
-    if not want_pix:
-        return out, None
-    return out, idct_islow(out.reshape(8, 8, B)).reshape(64, B)
+    return _with_pix(out, want_pix)
+
+
+def solve_fused_pix(coef, pix, image2, div, x1, qshr, tab, flags,
+                    do_rebalance, hb, wb, want_pix=True):
+    """One fused pass, the plain version of kernels B3/B4.
+
+    coef, pix int32[64, B] (pix: the previous pass's pixels, the source
+    of the 10x10 halo); image2, tab and the result as solve_fused."""
+    halo = blocks_halo10(pix.reshape(8, 8, -1), hb, wb)
+    return solve_fused(coef, halo.reshape(100, -1), image2, div, x1, qshr,
+                       tab, flags, do_rebalance, want_pix)
 
 
 # ---------------------------------------------------------------------------

@@ -100,10 +100,116 @@ def test_launch_counts(cuda):
                                 5)
     cuda_solver.solve_fused_pix(coef, pix, None, *tabs, LOW_QUALITY, True, 4,
                                 5)
+    borders = torch.cat(planar.borders_from_blocks(pix.reshape(8, 8, -1), 4,
+                                                   5))
+    halo = planar.blocks_halo10(pix.reshape(8, 8, -1), 4, 5).reshape(100, -1)
+    cuda_solver.solve_rebalance(coef, borders, *tabs, 0, True)
+    cuda_solver.solve_fused(coef, halo, image2, *tabs, JOINT_YUV, True)
+    cuda_solver.solve_fused(coef, halo, None, *tabs, LOW_QUALITY, True)
+    cuda_solver.peak_chains(torch.ones(256, device=cuda), 4, 8)
     cuda_solver.idct_pix(coef.cpu())                 # plain: not counted
     assert cuda_solver.LAUNCHES == {
         "idct_pix": 1, "solve_rebalance_pix": 1,
-        "solve_fused_pix_joint": 1, "solve_fused_pix_lq": 1}
+        "solve_fused_pix_joint": 1, "solve_fused_pix_lq": 1,
+        "solve_rebalance": 1, "solve_fused_joint": 1, "solve_fused_lq": 1,
+        "peak": 1}
+
+
+def _chunk_inputs(cuda, seed, joint):
+    """A 9x13 plane's coefficients and materialised neighbourhoods."""
+    hb, wb = 9, 13
+    coef, pix, tabs = _inputs(hb, wb, seed, cuda)
+    B = hb * wb
+    borders = torch.cat(planar.borders_from_blocks(pix.reshape(8, 8, B), hb,
+                                                   wb))
+    halo = planar.blocks_halo10(pix.reshape(8, 8, B), hb, wb).reshape(100, B)
+    rng = np.random.default_rng(seed)
+    image2 = (torch.from_numpy(rng.integers(0, 256, (100, B)).astype(
+        np.int32)).to(cuda) if joint else None)
+    return coef, borders, halo, image2, tabs, wb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r0,n", [(0, 9), (0, 2), (4, 3), (8, 1)])
+@pytest.mark.parametrize("flags", [0, DIAGONALS])
+def test_solve_rebalance_chunks_on_card(cuda, r0, n, flags):
+    """B5 vs its plain version on a row chunk given as column-slice
+    views of the whole plane (the first, a middle and the last rows)."""
+    coef, borders, _, _, tabs, wb = _chunk_inputs(cuda, 3 + flags, False)
+    s = slice(r0 * wb, (r0 + n) * wb)
+    tab = cuda_solver.solver_tables(flags, cuda)
+    for reb in (True, False):
+        got = cuda_solver.solve_rebalance(coef[:, s], borders[:, s], *tabs,
+                                          flags, reb, want_pix=True)
+        want = planar.solve_rebalance(coef[:, s], borders[:, s], *tabs, tab,
+                                      reb, want_pix=True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r0,n", [(0, 9), (4, 3), (8, 1)])
+@pytest.mark.parametrize("flags,joint", [
+    (JOINT_YUV | DIAGONALS, True), (JOINT_YUV, True),
+    (JOINT_YUV | LOW_QUALITY | DIAGONALS, True),
+    (LOW_QUALITY | DIAGONALS, False)])
+def test_solve_fused_chunks_on_card(cuda, r0, n, flags, joint):
+    """B6 vs its plain version on a row chunk of the whole plane's halos
+    (and image2), rebalance and pixels on and off."""
+    coef, _, halo, image2, tabs, wb = _chunk_inputs(cuda, 5 + flags, joint)
+    s = slice(r0 * wb, (r0 + n) * wb)
+    tab = (None if flags & LOW_QUALITY
+           else cuda_solver.solver_tables(flags, cuda))
+    i2 = None if image2 is None else image2[:, s]
+    for reb in (True, False):
+        for want_pix in (True, False):
+            got = cuda_solver.solve_fused(coef[:, s], halo[:, s], i2, *tabs,
+                                          flags, reb, want_pix)
+            want = planar.solve_fused(coef[:, s], halo[:, s], i2, *tabs, tab,
+                                      flags, reb, want_pix)
+            assert torch.equal(got[0], want[0])
+            assert (got[1] is None) == (not want_pix)
+            if want_pix:
+                assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch", cuda_solver.PEAK_CHAINS)
+def test_peak_vs_plain_on_card(cuda, nch):
+    """T3 vs its plain version, bit for bit (separate mul and add)."""
+    x = torch.from_numpy(np.random.default_rng(nch).uniform(
+        0.5, 1.5, 1000).astype(np.float32)).to(cuda)
+    got = cuda_solver.peak_chains(x, nch, 50)
+    want = cuda_solver.peak_chains_plain(x, nch, 50)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_progress_run_launches(cuda):
+    """A 4:2:0 q6 n3 progress run: per component three B1 + one for the
+    plane, three passes (B5 on the luma, B6 JOINT on the chroma), and the
+    same output as the run without a callback; with ``precise`` at
+    progprec -1, one pass per block row and progress step."""
+    from jpegqs_tpu_torch import QsOptions, engine, synth
+    img = synth.make_image(64, 48, color=True, seed=3)
+    calls = []
+    opts = QsOptions.from_quality(6, 3, progress=lambda u, c, m:
+                                  calls.append((c, m)) and 0)
+    cuda_solver.reset_launches()
+    res = engine.smooth(img, opts)
+    assert cuda_solver.LAUNCHES["idct_pix"] == 12
+    assert cuda_solver.LAUNCHES["solve_rebalance"] == 3
+    assert cuda_solver.LAUNCHES["solve_fused_joint"] == 6
+    plain = engine.smooth(img, QsOptions.from_quality(6, 3))
+    assert all(np.array_equal(a, b) for a, b in zip(res.coefs, plain.coefs))
+    assert all(np.array_equal(a, b)
+               for a, b in zip(res.upsampled, plain.upsampled))
+    opts.precise, opts.progprec = True, -1
+    cuda_solver.reset_launches()
+    res = engine.smooth(img, opts)
+    hb = [c.height_in_blocks for c in img.components]
+    assert cuda_solver.LAUNCHES["solve_rebalance"] == 3 * hb[0]
+    assert cuda_solver.LAUNCHES["solve_fused_joint"] == 3 * (hb[1] + hb[2])
+    assert all(np.array_equal(a, b) for a, b in zip(res.coefs, plain.coefs))
 
 
 @pytest.mark.cuda

@@ -172,8 +172,10 @@ def test_cli_matches_jax(tmp_path):
 
 def test_unported_paths_raise():
     """Every quality level runs (q0 on gray, q5 on 4:2:0 here; the JAX
-    comparisons are in tests/test_torch_color.py); only a progress
-    callback still raises."""
+    comparisons are in tests/test_torch_color.py), and so does a progress
+    callback (tests/test_torch_progress.py): one that never cancels
+    leaves the planes as without it.  Only --batch still raises
+    (test_cli_matches_jax)."""
     gray = image_from_arrays(jax_jpegio.read_coefficients(_gray()))
     color = image_from_arrays(jax_jpegio.read_coefficients(_c420()))
     for img, q in ((gray, 0), (color, 5)):
@@ -182,9 +184,13 @@ def test_unported_paths_raise():
         assert res.stop == 0 and len(res.coefs) == len(img.components)
         assert any(not np.array_equal(a, c.coefs)
                    for a, c in zip(res.coefs, img.components))
-    with pytest.raises(NotImplementedError, match="progress"):
-        jpegqs_tpu_torch.smooth(gray, QsOptions.from_quality(
-            3, 3, progress=lambda *a: 0), "cpu")
+    calls = []
+    plain = jpegqs_tpu_torch.smooth(gray, QsOptions.from_quality(3, 3),
+                                    "cpu")
+    res = jpegqs_tpu_torch.smooth(gray, QsOptions.from_quality(
+        3, 3, progress=lambda *a: calls.append(a[1:]) and 0), "cpu")
+    assert calls and calls[-1] == (20, 20)
+    _assert_same(plain, res)
 
 
 def test_default_device_is_the_card():
