@@ -36,12 +36,23 @@ on any mismatch:
    with row chunks (progprec 20), q2 n3 per iteration, and a cancel at
    the third callback: the (cur, max) trace and the launch counts worked
    out from the image, the planes against the plain path on the card and
-   the fused run, times.
+   the fused run, times;
+9. the sharded path, with its shards on this one card: B7 bit for bit
+   against its plain version on every shard of small random planes (2-4
+   shards, dead pad rows, every edge position, split ranges) and on the
+   last of 4 shards of the 12 MP planes at each variant, with its time
+   there; the auto-sharded engine (``engine._try_smooth_sharded``) on a
+   4032x3024 4:2:0 frame at q6 n3 over 2 and 4 shards with JPEGQS_OVERLAP
+   off and on, the 12 MP photo at q3 n3 over 3 and the 2.1 MP frame at q0
+   n3 over 4: launch counts worked out from the image, bit-identity with
+   the single-device run, times beside the single-device ones, the ghost
+   exchange's time; and the golden digests through the sharded path.
 
 Its last line is {"ok": true, "device": {...}}; the line before it is
 nvidia-smi's name and power limit, and before that one JSON line of
-per-kernel numbers, and before that one summary line per main-path
-run.  Without a CUDA device it exits 1 and prints no result.
+per-kernel numbers (B1-B7, T3, T1/T2), and before that one summary line
+per main-path, progress-path and sharded run.  Without a CUDA device it
+exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ from jpegqs_tpu_torch import (DIAGONALS, JOINT_YUV, LOW_QUALITY, UPSAMPLE_UV,
 from jpegqs_tpu_torch.host.jpegio import ComponentData, JpegImage, JCS_YCBCR
 from jpegqs_tpu_torch.ops import _build, cuda_solver, dct, planar
 from jpegqs_tpu_torch.ops.quant import make_quant_tables
+from jpegqs_tpu_torch.parallel import sharded
 
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W limit): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 counts an FMA as two operations, so separate fp32 adds
@@ -90,6 +102,9 @@ DEVICE = "cuda"
 # 2.1 MP frame of bench.py (gray), (height, width)
 COLOR_HW = (3000, 4000)
 GRAY_HW = (1080, 1920)
+# the 12 MP frame of a phone camera whose 4:2:0 planes are aligned (378
+# luma block rows = 2 x 189 chroma), which the YCbCr flow shards
+ALIGNED_HW = (3024, 4032)
 
 Q_FLAGS = {q: quality_to_flags(q) for q in range(7)}
 # (flags, JOINT_YUV preamble) of the B3/B4 checks: B3 with the sweep at
@@ -297,13 +312,24 @@ def plain_solve_fused(coef, halo, image2, div, x1, qshr, flags, do_rebalance,
                               do_rebalance, want_pix)
 
 
+def plain_solve_range_pix(coef, pix, image2, div, x1, qshr, flags,
+                          do_rebalance, wb, b0, b1, edges, coef_out,
+                          pix_out=None):
+    cuda_solver.check_range(coef.shape[1], wb, b0, b1, edges)
+    tab = (None if flags & LOW_QUALITY
+           else cuda_solver.solver_tables(flags, coef.device))
+    planar.solve_range_pix(coef, pix, image2, div, x1, qshr, tab, flags,
+                           do_rebalance, wb, b0, b1, edges, coef_out, pix_out)
+
+
 KERNELS = ("idct_pix", "solve_rebalance_pix", "solve_fused_pix",
-           "solve_rebalance", "solve_fused")
+           "solve_rebalance", "solve_fused", "solve_range_pix")
 PLAIN = {"idct_pix": plain_idct_pix,
          "solve_rebalance_pix": plain_solve_rebalance_pix,
          "solve_fused_pix": plain_solve_fused_pix,
          "solve_rebalance": plain_solve_rebalance,
-         "solve_fused": plain_solve_fused}
+         "solve_fused": plain_solve_fused,
+         "solve_range_pix": plain_solve_range_pix}
 
 
 class plain_kernels:
@@ -404,6 +430,24 @@ def phase_canaries(torch):
         got[~nan].view(np.int32) != want[~nan].view(np.int32)))
     assert bad == 0, f"divide canary: {bad}/{n} lanes differ from IEEE"
     log(f"canaries: muladd, fold(242), divide: {n} lanes each, all exact")
+    # T1/T2's times on the lanes of the check, beside their plain versions
+    # (separate torch ops on the card); their bounds come with T3's rate
+    dev = [to_dev(x) for x in (a, b, c, terms)]
+
+    def fold_plain():
+        acc = torch.zeros_like(dev[3][0])
+        for j in range(242):
+            acc = acc + dev[3][j]
+        return acc
+
+    return {"canary_muladd": {
+                "ms": cuda_ms(lambda: cuda_solver.canary_muladd(*dev[:3])),
+                "plain_ms": cuda_ms(lambda: dev[0] * dev[1] + dev[2]),
+                "nbytes": 4 * 4 * n, "ops": 2 * n},
+            "canary_fold": {
+                "ms": cuda_ms(lambda: cuda_solver.canary_fold(dev[3])),
+                "plain_ms": cuda_ms(fold_plain), "nbytes": 243 * 4 * n,
+                "ops": 242 * n}}
 
 
 def phase_peak(torch, stats, card):
@@ -1005,6 +1049,413 @@ def phase_progress(torch, img, card):
     return total, summaries
 
 
+# ---------------------------------------------------------------------------
+# The sharded path: B7 and the row-sharded engine on shards of one card
+# ---------------------------------------------------------------------------
+
+# (flags, JOINT_YUV preamble) of the B7 checks: the B2 form at NT 144 and
+# 242, B3 with the sweep at NT 242 and 144 and without it, B4
+RANGE_FLAG_SETS = ((0, False), (DIAGONALS, False)) + FUSED_FLAG_SETS
+FLAG_NAMES.update({0: "0", DIAGONALS: "DIAGONALS", Q_FLAGS[6]: "q6",
+                   Q_FLAGS[2]: "q2"})
+
+
+def range_key(flags, joint):
+    if joint:
+        return "solve_range_pix_joint"
+    return "solve_range_pix_lq" if flags & LOW_QUALITY else "solve_range_pix"
+
+
+def shard_rows(r, hb, hb_loc):
+    """(real rows, edges) of shard r of a plane of hb real block rows cut
+    into shards of hb_loc rows, as parallel/sharded.py cuts it (the last
+    shards may hold dead pad rows)."""
+    er, el = sharded._edge_pos(hb, hb_loc)
+    real = hb_loc if r < er else (el + 1 if r == er else 0)
+    return real, (1 if r == 0 else -1, el + 1 if r == er else -1)
+
+
+def shard_ext(x, r, n, wb, rng=None):
+    """Shard r of n of plane x int32[R, hb*wb] as the sharded loop holds
+    it, its rows between a ghost row above and one below holding the
+    neighbours' boundary rows; rows outside the plane (ghosts at the
+    image's edges, dead pad rows) random when ``rng`` is given (no edge
+    may let a pass read them), else zero."""
+    import torch
+    if x is None:
+        return None
+    R, hb = x.shape[0], x.shape[1] // wb
+    hb_loc = sharded._pad_to(hb, n) // n
+    out = (to_dev(rng.integers(0, 256, (R, hb_loc + 2, wb)).astype(np.int32))
+           if rng is not None else torch.zeros(
+               (R, hb_loc + 2, wb), dtype=torch.int32, device=x.device))
+    lo = r * hb_loc - 1
+    a, b = max(lo, 0), min(lo + hb_loc + 2, hb)
+    if a < b:
+        out[:, a - lo:b - lo] = x.reshape(R, hb, wb)[:, a:b]
+    return out.reshape(R, -1)
+
+
+def check_range(torch, ext, tabs, flags, reb, wb, cuts, edges, want_pix):
+    """B7 vs its plain version over the ranges between consecutive
+    ``cuts`` of one shard, each writing its range of one whole-size
+    output; returns the max |err|."""
+    coef, pix, image2 = ext
+    got = [torch.zeros_like(coef) for _ in range(2)]
+    want = [torch.zeros_like(coef) for _ in range(2)]
+    for b0, b1 in zip(cuts, cuts[1:]):
+        cuda_solver.solve_range_pix(coef, pix, image2, *tabs, flags, reb, wb,
+                                    b0, b1, edges, got[0],
+                                    got[1] if want_pix else None)
+        plain_solve_range_pix(coef, pix, image2, *tabs, flags, reb, wb, b0,
+                              b1, edges, want[0],
+                              want[1] if want_pix else None)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    assert err == 0, (f"B7 differs from plain at flags={flags} wb={wb} "
+                      f"cuts={cuts} edges={edges} reb={reb} (max |err| "
+                      f"{err})")
+    return err
+
+
+def phase_b7_vs_plain(torch, stats):
+    """B7 vs its plain version on every shard of small random planes: 2, 3
+    and 4 shards over prime row counts (dead pad rows, the bottom edge
+    mid-shard), every edge position (the top, the bottom, none), each
+    shard's real rows whole and split at the first, an interior and the
+    last row; ghost and dead rows random."""
+    rng = np.random.default_rng(13)
+    n_cases = 0
+    for flags, joint in RANGE_FLAG_SETS:
+        for hb, wb, n in ((7, 5, 2), (11, 9, 3), (13, 4, 4), (5, 13, 2)):
+            coef, pix, tabs = _random_case(rng, hb * wb, True)
+            image2 = (to_dev(rng.integers(0, 256, (100, hb * wb)).astype(
+                np.int32)) if joint else None)
+            for r in range(n):
+                real, edges = shard_rows(r, hb, sharded._pad_to(hb, n) // n)
+                if not real:
+                    continue
+                ext = [shard_ext(x, r, n, wb, rng)
+                       for x in (coef, pix, image2)]
+                last = (real + 1) * wb
+                for cuts, reb, want_pix in (
+                        ((wb, last), True, True),
+                        (sorted({wb, 2 * wb, wb + real * wb // 2, real * wb,
+                                 last}), False, False)):
+                    err = check_range(torch, ext, tabs, flags, reb, wb, cuts,
+                                      edges, want_pix)
+                    key = range_key(flags, joint)
+                    stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"],
+                                                    err)
+                    n_cases += 1
+    log(f"B7 vs plain: {n_cases} small shard cases bit-identical (flags "
+        f"{', '.join(FLAG_NAMES[f] for f, _ in RANGE_FLAG_SETS)}; hb x wb "
+        f"over n shards 7x5/2, 11x9/3, 13x4/4, 5x13/2; every shard, whole "
+        f"and split ranges, ghosts and dead rows random)")
+
+
+def phase_b7_full_shard(torch, img, stats, card, t3_rate):
+    """B7 vs plain on one full shard of the 12 MP photo's planes -- the
+    last of 4: 93 real luma rows of 94 (the 375-row plane is padded to
+    376, so the bottom edge is mid-shard) and 47 chroma rows -- at each
+    variant, whole and split as JPEGQS_OVERLAP splits it; then the
+    kernel's time per variant on the whole shard."""
+    coef, pix, tabs, hb, wb = _plane_inputs(img, 0)
+    ccoef, cpix, ctabs, hbc, wbc = _plane_inputs(img, 1)
+    image2 = planar.blocks_halo10(planar.downsample_blocks(
+        pix.reshape(8, 8, hb * wb), hb, wb, hbc, wbc, 2, 2), hbc, wbc).reshape(
+        100, hbc * wbc)
+    n, r = 4, 3
+    luma = [shard_ext(x, r, n, wb) for x in (coef, pix)] + [None]
+    chroma = [shard_ext(x, r, n, wbc) for x in (ccoef, cpix, image2)]
+    plans = (("luma", luma, tabs, wb, hb, ((0, False), (DIAGONALS, False),
+                                          (Q_FLAGS[0], False))),
+             ("chroma", chroma, ctabs, wbc, hbc,
+              ((Q_FLAGS[6], True), (JOINT_YUV, True), (Q_FLAGS[2], True))))
+    blk = 64 * 4
+    timed = []
+    for plane, ext, t, w, h, sets in plans:
+        real, edges = shard_rows(r, h, sharded._pad_to(h, n) // n)
+        last = (real + 1) * w
+        for flags, joint in sets:
+            if not joint:
+                ext = ext[:2] + [None]
+            for cuts in ((w, last), sorted({w, 2 * w, real * w, last})):
+                err = check_range(torch, ext, t, flags, True, w, cuts, edges,
+                                  True)
+                key = range_key(flags, joint)
+                stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+            nb = real * w
+            if flags & LOW_QUALITY and not joint:
+                nbytes, ops = nb * blk * 4, nb * LQ_PREAMBLE_OPS
+            elif joint:
+                nbytes = nb * (blk * 4 + 100 * 4)
+                ops = nb * JOINT_PREAMBLE_OPS
+                if not flags & LOW_QUALITY:
+                    nt = cuda_solver.nt_for(flags)
+                    nbytes += 64 * nt * 4
+                    ops += nb * sweep_terms(flags) * FP32_OPS_PER_TERM
+            else:
+                nt = cuda_solver.nt_for(flags)
+                nbytes = nb * blk * 4 + 64 * nt * 4
+                ops = nb * sweep_terms(flags) * FP32_OPS_PER_TERM
+            timed.append((range_key(flags, joint), plane, flags, ext, t, w,
+                          (w, last), edges, nbytes, ops, nb))
+    log(f"B7 vs plain: the last of 4 shards of the {hb}x{wb} luma plane "
+        f"(B2 form at flags 0 and DIAGONALS, B4 at q0) and of the "
+        f"{hbc}x{wbc} chroma plane (B3 at q6, JOINT, q2), whole and split, "
+        f"bit-identical")
+    for key, plane, flags, ext, t, w, (b0, b1), edges, nbytes, ops, nb in \
+            timed:
+        outs = [torch.empty_like(ext[0]) for _ in range(2)]
+        args = (*ext, *t, flags, True, w, b0, b1, edges, *outs)
+        row = {"ms": cuda_ms(lambda: cuda_solver.solve_range_pix(*args)),
+               "plain_ms": cuda_ms(lambda: plain_solve_range_pix(*args), 1),
+               **bound_row(nbytes, ops, t3_rate)}
+        what = (f"on {nb} blocks (last of 4 {plane} shards, flags "
+                f"{FLAG_NAMES.get(flags, flags)})")
+        log(f"B7 {key} {what}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}; {row['bound_ms_t3']:.4f} ms at T3's fp32 "
+            f"rate) [{card}]")
+        variant = {"what": what, **row}
+        if "ms" in stats[key]:
+            stats[key].setdefault("variants", []).append(variant)
+        else:
+            stats[key].update(row, variants=[variant])
+
+
+def expected_sharded(img, opts, n, overlap):
+    """The launches of an auto-sharded run over up to n shards that no
+    stop cuts short, worked out from the image: per component B1 on each
+    shard, and per iteration on each shard with real rows one B7 launch,
+    or three (interior rows, first row, last row) under JPEGQS_OVERLAP
+    when it has three real rows or more."""
+    flags, comps = opts.flags, img.components
+    r = engine._shard_grid(img, opts, n)
+    ycbcr = engine._need_downsample(img, flags)
+    want = {"idct_pix": r * len(comps)}
+    for ci, c in enumerate(comps):
+        hb = c.height_in_blocks
+        if ycbcr:       # the luma is padded to v_samp x the chroma's rows
+            hb_pad = sharded._pad_to(comps[1].height_in_blocks, r) * (
+                c.v_samp_factor if ci == 0 else 1)
+        else:
+            hb_pad = sharded._pad_to(hb, r)
+        key = range_key(flags, ycbcr and ci > 0 and bool(flags & JOINT_YUV))
+        for k in range(r):
+            real = shard_rows(k, hb, hb_pad // r)[0]
+            per = 3 if overlap and real >= 3 else int(real > 0)
+            want[key] = want.get(key, 0) + per * opts.niter
+    return want, r
+
+
+def sharded_device_run(img, opts, devices):
+    """The device work of ``engine._try_smooth_sharded(img, opts,
+    devices)`` on inputs already on the card: the same builders, called
+    with device tensors (outputs stay on the card)."""
+    flags, comps = opts.flags, img.components
+    devices = devices[:engine._shard_grid(img, opts, len(devices))]
+
+    def dev_inputs(c):
+        qraw = np.asarray(c.quantval, np.int32)
+        return (to_dev(np.asarray(c.coefs, np.int16).reshape(
+            c.height_in_blocks, c.width_in_blocks, 64)),
+            [to_dev(t) for t in (qraw, *make_quant_tables(qraw))])
+
+    if engine._need_downsample(img, flags):
+        y, cb = comps[:2]
+        fn = sharded.make_sharded_ycbcr_smooth(
+            devices, hb_l=y.height_in_blocks, wb_l=y.width_in_blocks,
+            hb_c=cb.height_in_blocks, wb_c=cb.width_in_blocks,
+            ws=y.h_samp_factor, hs=y.v_samp_factor, flags=flags,
+            niter=opts.niter, img_w=img.width, img_h=img.height)
+        ins = [dev_inputs(c) for c in comps]
+        return lambda: fn(*(p for p, _ in ins), *(t for _, t in ins))
+    fns = [(sharded.make_sharded_smooth(
+        devices, hb=c.height_in_blocks, wb=c.width_in_blocks, flags=flags,
+        niter=opts.niter, luma=ci == 0 or not img.is_ycbcr), *dev_inputs(c))
+        for ci, c in enumerate(comps)]
+    return lambda: [fn(p, *t) for fn, p, t in fns]
+
+
+def single_device_numbers(torch, img, opts, cache):
+    """The single-device run of the same image: its result, device ms (the
+    whole-image run on resident inputs) and smooth() ms, once per
+    image and options."""
+    key = (id(img), opts.flags, opts.niter)
+    if key not in cache:
+        dev = engine.resolve_device()
+        res = engine._smooth_fused(img, opts, dev)
+        plan = engine.plan_image(img, opts)
+        inputs = engine.upload(img, plan.comps, dev)
+        cache[key] = (res, cuda_ms(lambda: engine.run_image(plan, inputs)),
+                      host_ms(lambda: engine._smooth_fused(img, opts, dev)))
+    return cache[key]
+
+
+def phase_sharded(torch, runs, card):
+    """The auto-sharded path, ``engine._try_smooth_sharded``, with its
+    shards on this one card: per run the launch counts (reset just
+    before, read just after) against expected_sharded, bit-identity with
+    the single-device run of the same image, device and smooth() times,
+    the profiler's split (B7, the exchange copies) and the single-device
+    numbers beside them.  Returns the summed launch counts and one
+    summary line per run."""
+    import os
+    total = dict.fromkeys(cuda_solver.LAUNCHES, 0)
+    summaries, cache = [], {}
+    for name, img, quality, niter, n, overlap in runs:
+        opts = QsOptions.from_quality(quality, niter)
+        os.environ["JPEGQS_OVERLAP"] = overlap
+        devices = [DEVICE] * n
+        cuda_solver.reset_launches()
+        res = engine._try_smooth_sharded(img, opts, devices)
+        torch.cuda.synchronize()
+        counts = dict(cuda_solver.LAUNCHES)
+        tag = f"q{quality} n{niter}, {n} shards, overlap {overlap}"
+        assert res is not None, f"{name} {tag}: sharding declined"
+        want, r = expected_sharded(img, opts, n, overlap == "1")
+        expect = dict.fromkeys(counts, 0)
+        expect.update(want)
+        assert counts == expect, f"{name} {tag}: launches {counts} != {expect}"
+        for k, v in counts.items():
+            total[k] += v
+        _check_planes(img, res, opts)
+        single, dev1_ms, e2e1_ms = single_device_numbers(torch, img, opts,
+                                                         cache)
+        assert _same(res, single), f"{name} {tag}: sharded != single device"
+        run = sharded_device_run(img, opts, devices)
+        dev_ms = cuda_ms(run)
+        e2e_ms = host_ms(lambda: engine._try_smooth_sharded(img, opts,
+                                                            devices))
+        busy, n_launch, by_kernel = device_breakdown(torch, run, dev_ms, card)
+        mp = img.width * img.height / 1e6
+        log(f"sharded {name} {tag}: {img.width}x{img.height}, {r} shards "
+            f"used, launches {counts}; bit-identical to the single-device "
+            f"run")
+        log(f"  device {dev_ms:.3f} ms ({mp / dev_ms * 1e3:.1f} MP/s), "
+            f"_try_smooth_sharded() {e2e_ms:.3f} ms; single device "
+            f"{dev1_ms:.3f} ms, smooth() {e2e1_ms:.3f} ms [{card}]")
+        summaries.append(
+            f"summary sharded {name} {tag}: device {dev_ms:.3f} ms, "
+            f"smooth() {e2e_ms:.3f} ms; card busy {100 * busy / dev_ms:.1f}%, "
+            f"{n_launch} kernels, B7 {by_kernel['B7']:.3f} ms in "
+            f"{sum(v for k, v in counts.items() if 'range' in k)} launches, "
+            f"exchange {by_kernel['exchange']:.3f} ms, B1 "
+            f"{by_kernel['B1']:.3f} ms, glue "
+            f"{busy - sum(by_kernel.values()):.3f} ms; single device "
+            f"{dev1_ms:.3f} / {e2e1_ms:.3f} ms [{card}]")
+    os.environ.pop("JPEGQS_OVERLAP", None)
+    log(f"sharded path launches (all runs): {total}")
+    return total, summaries
+
+
+def phase_exchange(torch, img, card):
+    """The ghost exchange alone (_exchange_ghosts, one iteration's copies)
+    on the luma pixels of ``img`` cut into 2 and 4 shards of this card,
+    CUDA events around it: it moves 2 x (n-1) lines of 8 x wb pixels."""
+    coef, pix, _, hb, wb = _plane_inputs(img, 0)
+    for n in (2, 4):
+        shards = sharded.Shards([DEVICE] * n)
+        hb_loc = sharded._pad_to(hb, n) // n
+        ext = [shard_ext(pix, r, n, wb) for r in range(n)]
+        ms = cuda_ms(lambda: sharded._exchange_ghosts(ext, hb_loc, wb,
+                                                      shards))
+        nbytes = 2 * (n - 1) * 8 * wb * 4
+        log(f"exchange over {n} shards of the {hb}x{wb} luma plane: "
+            f"{ms:.4f} ms for {2 * (n - 1)} copies of 8 x {wb} pixels "
+            f"({nbytes} B read and as many written) [{card}]")
+
+
+def phase_multicard(torch, runs, card):
+    """``smooth()`` as a user calls it on a machine with several cards:
+    its automatic sharding over every card (real cards, not shards of
+    one). Per run: the launch counts against expected_sharded,
+    bit-identity with the single-device run on the first card, and
+    host-clock times of both (device work on resident inputs, and the
+    whole call), every card synchronised; then the ghost exchange across
+    the cards, timed alone.  On a one-card machine it says so and runs
+    nothing.  Returns the launch counts and one summary line per run."""
+    devices = engine.shard_devices(torch.device("cuda"))
+    if not devices:
+        log("multi-card: one card here, so smooth() does not shard; the "
+            "sharded path ran on shards of this card above")
+        return {}, []
+    n = len(devices)
+
+    def sync():
+        for d in devices:
+            torch.cuda.synchronize(d)
+
+    total = dict.fromkeys(cuda_solver.LAUNCHES, 0)
+    summaries = []
+    for name, img, quality, niter in runs:
+        opts = QsOptions.from_quality(quality, niter)
+        cuda_solver.reset_launches()
+        res = jpegqs_tpu_torch.smooth(img, opts)
+        sync()
+        counts = dict(cuda_solver.LAUNCHES)
+        want, r = expected_sharded(img, opts, n, False)
+        expect = dict.fromkeys(counts, 0)
+        expect.update(want)
+        tag = f"q{quality} n{niter} over {r} cards"
+        assert counts == expect, f"{name} {tag}: launches {counts} != {expect}"
+        for k, v in counts.items():
+            total[k] += v
+        single = engine._smooth_fused(img, opts, devices[0])
+        assert _same(res, single), f"{name} {tag}: != the single-card run"
+        run = sharded_device_run(img, opts, devices)
+        dev_ms = host_ms(lambda: (run(), sync()))
+        plan = engine.plan_image(img, opts)
+        inputs = engine.upload(img, plan.comps, devices[0])
+        dev1_ms = host_ms(lambda: (engine.run_image(plan, inputs), sync()))
+        e2e_ms = host_ms(lambda: jpegqs_tpu_torch.smooth(img, opts))
+        e2e1_ms = host_ms(lambda: engine._smooth_fused(img, opts, devices[0]))
+        mp = img.width * img.height / 1e6
+        summaries.append(
+            f"summary multi-card {name} {tag}: device {dev_ms:.3f} ms "
+            f"({mp / dev_ms * 1e3:.1f} MP/s), smooth() {e2e_ms:.3f} ms; one "
+            f"card {dev1_ms:.3f} / {e2e1_ms:.3f} ms; launches {counts}; "
+            f"bit-identical [{card} x{n}]")
+        log(summaries[-1])
+    coef, pix, _, hb, wb = _plane_inputs(runs[0][1], 0)
+    shards = sharded.Shards(devices)
+    hb_loc = sharded._pad_to(hb, n) // n
+    ext = [shard_ext(pix, r, n, wb).to(d) for r, d in enumerate(devices)]
+    ms = host_ms(lambda: (sharded._exchange_ghosts(ext, hb_loc, wb, shards),
+                          sync()))
+    log(f"exchange across {n} cards ({hb}x{wb} luma plane): {ms:.4f} ms "
+        f"for {2 * (n - 1)} copies of 8 x {wb} pixels, host clock [{card}]")
+    return total, summaries
+
+
+def phase_golden_sharded(torch):
+    """The golden cases through ``engine._try_smooth_sharded`` on 2 shards
+    of this card with the shard threshold at 0; where it declines (no
+    iteration, sampling factors above 2, unaligned YCbCr planes) the
+    fused path runs, as smooth() would.  Returns the launch counts."""
+    import os
+    os.environ["JPEGQS_SHARD_MIN_BLOCKS"] = "0"
+    cuda_solver.reset_launches()
+    n_sharded = 0
+    for case in GOLDEN_CASES:
+        img, opts = golden_image(case), golden_opts(case)
+        res = engine._try_smooth_sharded(img, opts, [DEVICE] * 2)
+        n_sharded += res is not None
+        if res is None:
+            res = engine._smooth_fused(img, opts, engine.resolve_device())
+        got = digest(res.coefs, res.stop, res.upsampled)
+        assert got == GOLDEN[case[0]], (
+            f"golden {case[0]} (sharded path): {got} != {GOLDEN[case[0]]}")
+    torch.cuda.synchronize()
+    del os.environ["JPEGQS_SHARD_MIN_BLOCKS"]
+    log(f"golden digests through the sharded path on 2 shards: "
+        f"{len(GOLDEN_CASES)} cases reproduced, {n_sharded} of them sharded "
+        f"(the others declined, as jpegqs_tpu declines them)")
+    return dict(cuda_solver.LAUNCHES)
+
+
 def device_breakdown(torch, run, dev_ms, card, window="device run"):
     """Kernel time by name over one run (torch.profiler), and the share
     of the ``dev_ms`` window the card was busy.  Returns the busy ms, the
@@ -1022,6 +1473,9 @@ def device_breakdown(torch, run, dev_ms, card, window="device run"):
             rows.append((t / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    # the sharded loop's ghost copies, by their profiler range
+    exchange = sum(e.device_time_total for e in prof.key_averages()
+                   if e.key == "jpegqs_exchange") / 1e3
     log(f"  profiler: kernels {busy:.3f} ms busy in a {dev_ms:.3f} ms "
         f"{window} ({100 * busy / dev_ms:.1f}%), {sum(r[1] for r in rows)}"
         f" kernel launches [{card}]; top:")
@@ -1035,7 +1489,9 @@ def device_breakdown(torch, run, dev_ms, card, window="device run"):
                              ("B4", "solve_fused_pix_kernel<1"),
                              ("B5", "solve_rebalance_kernel"),
                              ("B6 joint", "solve_fused_kernel<0"),
-                             ("B6 lq", "solve_fused_kernel<1"))}
+                             ("B6 lq", "solve_fused_kernel<1"),
+                             ("B7", "solve_range_pix_kernel"))}
+    by_kernel["exchange"] = exchange
     return busy, sum(r[1] for r in rows), by_kernel
 
 
@@ -1074,10 +1530,15 @@ REPLACES = {
     "solve_rebalance": "jpegqs_tpu/ops/pallas_solver.py:782",
     "solve_fused_joint": "jpegqs_tpu/ops/pallas_solver.py:824",
     "solve_fused_lq": "jpegqs_tpu/ops/pallas_solver.py:824",
+    "solve_range_pix": "jpegqs_tpu/ops/pallas_solver.py:647",
+    "solve_range_pix_joint": "jpegqs_tpu/ops/pallas_solver.py:647",
+    "solve_range_pix_lq": "jpegqs_tpu/ops/pallas_solver.py:647",
     "peak": "tools/vpu_peak.py:50",
+    "canary_muladd": "tests/test_canary.py:47",
+    "canary_fold": "tests/test_canary.py:73",
 }
-# T3 measures the card; no path of the engine runs it
-OFF_PATH = ("peak",)
+# T3 measures the card and T1/T2 check the build; no path runs them
+OFF_PATH = ("peak", "canary_muladd", "canary_fold")
 
 
 def main() -> int:
@@ -1095,10 +1556,17 @@ def main() -> int:
     card = nvidia_smi()
     stats = {name: {"max_abs_err": 0} for name in cuda_solver.LAUNCHES}
     phase_build()
-    phase_canaries(torch)
+    canaries = phase_canaries(torch)
     stamp("build, canaries")
     t3_rate = phase_peak(torch, stats, card)
     stamp("T3 fp32 peak")
+    for name, c in canaries.items():
+        stats[name] = {"max_abs_err": 0, "ms": c["ms"],
+                       "plain_ms": c["plain_ms"],
+                       **bound_row(c["nbytes"], c["ops"], t3_rate)}
+        log(f"{name}: {c['ms']:.4f} ms on {1 << 16} lanes, plain "
+            f"{c['plain_ms']:.4f} ms, bound {stats[name]['bound_ms']:.6f} ms "
+            f"({stats[name]['bound_by']}) [{card}]")
     phase_kernels_vs_plain(torch, stats)
     stamp("small kernel-vs-plain cases")
     phase_golden(torch)
@@ -1126,20 +1594,49 @@ def main() -> int:
     stamp("main path")
     progress_launches, progress_summaries = phase_progress(torch, color, card)
     stamp("progress path")
-    for k, v in progress_launches.items():
-        launches[k] += v
+    phase_b7_vs_plain(torch, stats)
+    phase_b7_full_shard(torch, color, stats, card, t3_rate)
+    stamp("B7 vs plain")
+    # the 4000x3000 photo's planes are not aligned (375 luma block rows, 2 x
+    # 188 chroma): jpegqs_tpu declines to shard its YCbCr flow, and so does
+    # the port; the YCbCr runs take the 4032x3024 frame (378 = 2 x 189)
+    assert engine._try_smooth_sharded(color, QsOptions.from_quality(6, 3),
+                                      [DEVICE] * 4) is None
+    t0 = time.perf_counter()
+    aligned = synth.make_image(*ALIGNED_HW, color=True, seed=0)
+    log(f"inputs: synthetic {ALIGNED_HW[1]}x{ALIGNED_HW[0]} 4:2:0, IJG q75, "
+        f"{time.perf_counter() - t0:.1f} s")
+    sharded_launches, sharded_summaries = phase_sharded(torch, (
+        ("color_12mp_aligned", aligned, 6, 3, 2, "0"),
+        ("color_12mp_aligned", aligned, 6, 3, 2, "1"),
+        ("color_12mp_aligned", aligned, 6, 3, 4, "0"),
+        ("color_12mp_aligned", aligned, 6, 3, 4, "1"),
+        ("color_12mp", color, 3, 3, 3, "0"),
+        ("gray_2mp", gray, 0, 3, 4, "0"),
+    ), card)
+    phase_exchange(torch, aligned, card)
+    golden_launches = phase_golden_sharded(torch)
+    multicard_launches, multicard_summaries = phase_multicard(torch, (
+        ("color_12mp_aligned", aligned, 6, 3), ("color_12mp", color, 3, 3),
+        ("gray_2mp", gray, 0, 3)), card)
+    sharded_summaries += multicard_summaries
+    stamp("sharded path")
+    for counts in (progress_launches, sharded_launches, golden_launches,
+                   multicard_launches):
+        for k, v in counts.items():
+            launches[k] += v
     unused = [k for k in launches if k not in OFF_PATH and not launches[k]]
     assert not unused, f"kernels the main paths never launched: {unused}"
     phase_transcode(torch, card)
-    for line in summaries + progress_summaries:
+    for line in summaries + progress_summaries + sharded_summaries:
         log(line)
     rows = []
-    for name in cuda_solver.LAUNCHES:
+    for name in list(cuda_solver.LAUNCHES) + list(canaries):
         s = stats[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": "jpegqs_tpu_torch/csrc/solver.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": launches.get(name, 0),
             "on_path": name not in OFF_PATH,
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],

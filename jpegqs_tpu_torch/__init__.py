@@ -6,8 +6,11 @@ written for Hopper (csrc/solver.cu).  Bit-identical to the JAX package
 ``jpegqs_tpu`` at every quality level, q0-q6, on gray and YCbCr colour
 at any sampling factors, with or without a progress callback (per
 iteration, or per row chunk with ``precise``; a truthy return
-cancels).  Batching, multi-GPU and ``decode_smoothed`` are not ported
-yet.  It imports neither JAX nor anything of ``jpegqs_tpu``.
+cancels).  With more than one CUDA device and no callback, ``smooth``
+shards a large image's block rows over every device
+(parallel/sharded.py).  Batching, the 2-D shard grid, multi-process
+sharding and ``decode_smoothed`` are not ported yet.  It imports neither
+JAX nor anything of ``jpegqs_tpu``.
 
 Public API:
   smooth(img, opts, device=None)            -- coefficient-level engine

@@ -305,6 +305,24 @@ __device__ __forceinline__ void emit_block(const int (&c)[64],
   }
 }
 
+// The four border lines of block b (v[64..95]: top, bottom, left, right)
+// from the previous pass's pixels of its neighbours, replicated at the edges
+// the caller flags (planar.borders_from_blocks; quantsmooth.h:1396-1401,
+// 2612-2620).  Each ternary picks the index before the load, so a flagged
+// edge reads nothing beyond it.
+__device__ __forceinline__ void load_borders(const int* __restrict__ pix,
+                                             size_t S, int b, int wb, bool t,
+                                             bool d, bool l, bool r,
+                                             int (&v)[96]) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    v[64 + q] = pix[t ? q * S + b : (56 + q) * S + (b - wb)];
+    v[72 + q] = pix[d ? (56 + q) * S + b : q * S + (b + wb)];
+    v[80 + q] = pix[l ? (q * 8) * S + b : (q * 8 + 7) * S + (b - 1)];
+    v[88 + q] = pix[r ? (q * 8 + 7) * S + b : (q * 8) * S + (b + 1)];
+  }
+}
+
 // ---------------------------------------------------------------------------
 // B2: one resident solver pass = border lines + k=63..1 sweep + rebalance +
 // emitted pixels.
@@ -342,21 +360,13 @@ solve_rebalance_pix_kernel(const int* __restrict__ coef_in,
 #pragma unroll
   for (int k = 0; k < 64; ++k) c[k] = coef_in[k * S + b];
 
-  // Border lines from the previous pass's pixels of the four neighbours,
-  // with edge replication (planar.borders_from_blocks; quantsmooth.h:
-  // 1396-1401, 2612-2620).  Edges come from the block's position inside its
-  // own image, so images concatenated on the block axis never mix.
+  // Edges come from the block's position inside its own image, so images
+  // concatenated on the block axis never mix.
   int v[96];
   const int loc = b % (hb * wb);
   const int by = loc / wb, bx = loc % wb;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    v[64 + q] = pix_in[by == 0 ? q * S + b : (56 + q) * S + (b - wb)];
-    v[72 + q] = pix_in[by == hb - 1 ? (56 + q) * S + b : q * S + (b + wb)];
-    v[80 + q] = pix_in[bx == 0 ? (q * 8) * S + b : (q * 8 + 7) * S + (b - 1)];
-    v[88 + q] =
-        pix_in[bx == wb - 1 ? (q * 8 + 7) * S + b : (q * 8) * S + (b + 1)];
-  }
+  load_borders(pix_in, S, b, wb, by == 0, by == hb - 1, bx == 0, bx == wb - 1,
+               v);
 
   sweep<NT>(c, v, div, x1, qshr, tab);
   if (do_rebalance) rebalance(c, div, x1, qshr);
@@ -373,14 +383,13 @@ solve_rebalance_pix_kernel(const int* __restrict__ coef_in,
 // goes on first, so a corner reads the neighbour's already-extended column:
 // at a top-row block that is not in the left column the top-left corner is
 // pixel 7 of the LEFT neighbour, at a left-column block not in the top row
-// pixel 56 of the UP neighbour, and so on.  Each ternary picks the index
-// before the load, so no read leaves the block's own image.
+// pixel 56 of the UP neighbour, and so on.  t, d, l, r flag the edges at
+// which the ring replicates; each ternary picks the index before the load,
+// so a flagged edge reads nothing beyond it.
 __device__ __forceinline__ void load_halo(const int* __restrict__ pix,
-                                          size_t S, int b, int hb, int wb,
+                                          size_t S, int b, int wb, bool t,
+                                          bool d, bool l, bool r,
                                           int (&h)[100]) {
-  const int loc = b % (hb * wb);
-  const int by = loc / wb, bx = loc % wb;
-  const bool t = by == 0, d = by == hb - 1, l = bx == 0, r = bx == wb - 1;
   auto px = [&](int k, int blk) { return pix[(size_t)k * S + blk]; };
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
@@ -608,8 +617,12 @@ solve_fused_pix_kernel(const FusedArgs a) {
   int c[64];
 #pragma unroll
   for (int k = 0; k < 64; ++k) c[k] = a.coef_in[k * S + b];
+  // edges from the block's position inside its own image, as B2
   int h[100];
-  load_halo(a.pix_in, S, b, a.hb, a.wb, h);
+  const int loc = b % (a.hb * a.wb);
+  const int by = loc / a.wb, bx = loc % a.wb;
+  load_halo(a.pix_in, S, b, a.wb, by == 0, by == a.hb - 1, bx == 0,
+            bx == a.wb - 1, h);
 
   float fb[64];
   if constexpr (PRE == kJoint) {
@@ -742,6 +755,95 @@ solve_fused_kernel(const GivenArgs a) {
   }
   if (a.do_rebalance) rebalance(c, div, x1, qshr);
   emit_block(c, a.coef_out, a.pix_out, (size_t)a.n, b);
+}
+
+// ---------------------------------------------------------------------------
+// B7 (PRE = kBorders, kJoint or kLowQuality): one resident pass of B2, B3 or
+// B4 over blocks [b0, b1) only, with the edges given by the caller.
+// Replaces jpegqs_tpu/ops/pallas_solver.py _solve_tiled(tile_range=(t0, t1))
+// as the sharded resident loop calls it (parallel/sharded.py
+// _sharded_resident_iters: solve_rebalance_pix / solve_fused_pix over a
+// tile range of the ghost-extended shard, with the rank-selected edge masks
+// of _ext_mask_parts).
+// A shard's grid is its own block rows with one ghost row above and one
+// below, which hold the neighbour shards' boundary pixel lines; the edges are
+// not where the position says: the top edge is local row 1 on the first
+// shard only (top_row, else -1), the bottom edge the row of the image's last
+// real block row on the shard that holds it (bot_row, else -1; under
+// pad-to-divisible sharding it may lie mid-shard, with dead rows below).
+// The left and right edges are the grid's columns.  The block range lets a
+// caller compute the interior rows, which read no ghost line, while the
+// ghost lines are still being exchanged.  Neighbours are read from the
+// whole input planes [., S]; the blocks of the range are written into the
+// whole-size outputs [64, S] at their own index, so the passes of a split
+// fill one output.  An output never aliases an input; pix_out may be NULL.
+// Bound on this card: as B2 (kBorders), B3 (kJoint) or B4 (kLowQuality).
+// Design: those kernels' device functions with the edge flags from the
+// descriptor; one thread per block of the range.
+// ---------------------------------------------------------------------------
+constexpr int kBorders = 2;
+
+struct RangeArgs {
+  const int* coef_in;
+  const int* pix_in;
+  const int* image2;  // [100, S] downsampled-luma halos (kJoint only)
+  int* coef_out;
+  int* pix_out;       // may be NULL
+  const int* div;
+  const int* x1;
+  const int* qshr;
+  const float* tab;   // [64, NT] (NT > 0 only)
+  int nblocks, wb, b0, b1, top_row, bot_row, do_rebalance;
+};
+
+template <int PRE, int NT>
+__global__ void __launch_bounds__(kThreads)
+solve_range_pix_kernel(const RangeArgs a) {
+  const int b = a.b0 + blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= a.b1) return;
+  const size_t S = (size_t)a.nblocks;
+  const int* __restrict__ div = a.div;
+  const int* __restrict__ x1 = a.x1;
+  const int* __restrict__ qshr = a.qshr;
+  const int by = b / a.wb, bx = b % a.wb;
+  const bool t = by == a.top_row, d = by == a.bot_row;
+  const bool l = bx == 0, r = bx == a.wb - 1;
+
+  int c[64];
+#pragma unroll
+  for (int k = 0; k < 64; ++k) c[k] = a.coef_in[k * S + b];
+
+  if constexpr (PRE == kBorders) {
+    int v[96];
+    load_borders(a.pix_in, S, b, a.wb, t, d, l, r, v);
+    sweep<NT>(c, v, div, x1, qshr, a.tab);
+  } else {
+    int h[100];
+    load_halo(a.pix_in, S, b, a.wb, t, d, l, r, h);
+    float fb[64];
+    if constexpr (PRE == kJoint) {
+      int g[100];
+#pragma unroll
+      for (int k = 0; k < 100; ++k) g[k] = a.image2[k * S + b];
+      joint_fblock(h, g, fb);
+    } else {
+      lq_fblock(h, lq_range(c, div), fb);
+    }
+    fdct_clamp(fb, c, div, x1, qshr);
+    if constexpr (NT > 0) {
+      int v[96];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        v[64 + q] = h[1 + q];
+        v[72 + q] = h[91 + q];
+        v[80 + q] = h[(q + 1) * 10];
+        v[88 + q] = h[(q + 1) * 10 + 9];
+      }
+      sweep<NT>(c, v, div, x1, qshr, a.tab);
+    }
+  }
+  if (a.do_rebalance) rebalance(c, div, x1, qshr);
+  emit_block(c, a.coef_out, a.pix_out, S, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -913,6 +1015,44 @@ int jq_solve_fused(const int* coef_in, const int* halo, const int* image2,
       solve_fused_kernel<kJoint, 144><<<grid, block, 0, s>>>(a);
     else
       solve_fused_kernel<kJoint, 242><<<grid, block, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// B7: pre is kBorders (nt 144 or 242), kJoint (image2 given; nt 0, 144 or
+// 242) or kLowQuality (nt 0).  Blocks [b0, b1) of the nblocks-block planes,
+// wb blocks a row; top_row / bot_row the rows whose top / bottom edge
+// replicates (-1: none).  pix_out may be NULL.
+int jq_solve_range_pix(const int* coef_in, const int* pix_in,
+                       const int* image2, int* coef_out, int* pix_out,
+                       const int* div, const int* x1, const int* qshr,
+                       const float* tab, int pre, int nt, int nblocks, int wb,
+                       int b0, int b1, int top_row, int bot_row,
+                       int do_rebalance, void* stream) {
+  const bool swept = nt == 144 || nt == 242;
+  const bool ok = pre == kBorders  ? swept
+                  : pre == kJoint  ? image2 != nullptr && (nt == 0 || swept)
+                                   : pre == kLowQuality && nt == 0;
+  if (!ok || wb < 1 || b0 < 0 || b1 > nblocks)
+    return (int)cudaErrorInvalidValue;
+  if (b1 > b0) {
+    const RangeArgs a{coef_in, pix_in, image2,  coef_out, pix_out, div,
+                      x1,      qshr,   tab,     nblocks,  wb,      b0,
+                      b1,      top_row, bot_row, do_rebalance};
+    const dim3 grid(blocks_for(b1 - b0)), block(kThreads);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (pre == kBorders && nt == 144)
+      solve_range_pix_kernel<kBorders, 144><<<grid, block, 0, s>>>(a);
+    else if (pre == kBorders)
+      solve_range_pix_kernel<kBorders, 242><<<grid, block, 0, s>>>(a);
+    else if (pre == kLowQuality)
+      solve_range_pix_kernel<kLowQuality, 0><<<grid, block, 0, s>>>(a);
+    else if (nt == 0)
+      solve_range_pix_kernel<kJoint, 0><<<grid, block, 0, s>>>(a);
+    else if (nt == 144)
+      solve_range_pix_kernel<kJoint, 144><<<grid, block, 0, s>>>(a);
+    else
+      solve_range_pix_kernel<kJoint, 242><<<grid, block, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

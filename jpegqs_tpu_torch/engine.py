@@ -30,6 +30,14 @@ so the callback fires (and may cancel) at the reference's points.  Its
 colour paths always use padded planes.  Both paths give the same
 output when the callback never cancels.
 
+On a machine with more than one CUDA device, ``smooth`` without a
+callback shards large images by block rows over every device
+(parallel/sharded.py, the JAX package's auto-sharding without its 2-D
+grid): _shard_grid picks the shard count, _try_smooth_sharded runs the
+gray/per-component or the YCbCr flow, or declines where the JAX engine
+does.  Each shard's pass is kernel B7 over its real rows between
+exchanges of the ghost pixel lines.
+
 Entropy decode/encode stays on the host (host/jpegio.py).  Output
 planes, upsampled planes and the stop flag are bit-identical to
 ``jpegqs_tpu.engine``.  Entry points run on the card unless the caller
@@ -551,20 +559,140 @@ def _smooth_percomp(img, opts: QsOptions, device) -> SmoothResult:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Auto-sharding over several CUDA devices (engine._shard_grid and
+# _try_smooth_sharded of the JAX package, row flow)
+# ---------------------------------------------------------------------------
+
+def shard_devices(dev: torch.device) -> list:
+    """The devices ``smooth`` shards over: every CUDA device, when the
+    card is asked for without an index and there is more than one; else
+    none."""
+    if dev.type != "cuda" or dev.index is not None \
+            or torch.cuda.device_count() < 2:
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _shard_grid(img, opts: QsOptions, ndev: int):
+    """The number of row shards for auto-sharding over ``ndev`` devices,
+    or None: more than one device, at least one iteration, an image of
+    at least JPEGQS_SHARD_MIN_BLOCKS blocks (default 16384: smaller ones
+    do not beat the exchanges' overhead), clean quant tables (the val<=1
+    and crafted-file shortcuts stay on one device) and sampling factors
+    up to 2.  Pad-to-divisible sharding lets any row count use every
+    device, up to the smallest component's block rows."""
+    import os
+
+    comps = img.components
+    if ndev < 2 or opts.niter < 1 or not comps:
+        return None
+    min_blocks = int(os.environ.get("JPEGQS_SHARD_MIN_BLOCKS", "16384"))
+    if sum(c.height_in_blocks * c.width_in_blocks for c in comps) \
+            < min_blocks:
+        return None
+    if comps[0].h_samp_factor > 2 or comps[0].v_samp_factor > 2:
+        return None
+    for c in comps:
+        val = int(np.bitwise_or.reduce(np.asarray(c.quantval, np.int32)))
+        if val <= 1 or val >= 0x800:
+            return None
+    r = min(ndev, min(c.height_in_blocks for c in comps))
+    return r if r >= 2 else None
+
+
+def _try_smooth_sharded(img, opts: QsOptions, devices):
+    """The image smoothed with its block rows sharded over ``devices``
+    (a device may repeat), or None where sharding does not apply: no
+    iteration, _shard_grid declines, or a YCbCr colour flow whose planes
+    are not aligned or that has more than three components."""
+    from .parallel import sharded
+
+    comps = img.components
+    flags = opts.flags
+    niter = min(max(opts.niter, 0), ITER_MAX)
+    if niter == 0:
+        return None             # dequant-only: the fused path models it
+    r = _shard_grid(img, opts, len(devices))
+    if r is None:
+        return None
+    devices = list(devices)[:r]
+
+    def tabs(ci):
+        qraw = np.asarray(comps[ci].quantval, np.int32)
+        return (qraw, *make_quant_tables(qraw))
+
+    def plane(c):
+        return np.asarray(c.coefs, np.int16).reshape(
+            c.height_in_blocks, c.width_in_blocks, 64)
+
+    res = SmoothResult()
+    res.coefs = [np.asarray(c.coefs, dtype=np.int16).copy() for c in comps]
+    if _need_downsample(img, flags):
+        y, cb, cr = comps[:3]
+        ws, hs = y.h_samp_factor, y.v_samp_factor
+        aligned = (y.height_in_blocks == hs * cb.height_in_blocks
+                   and y.width_in_blocks == ws * cb.width_in_blocks
+                   and cb.height_in_blocks == cr.height_in_blocks
+                   and cb.width_in_blocks == cr.width_in_blocks)
+        if not aligned or len(comps) != 3:
+            return None
+        fn = sharded.make_sharded_ycbcr_smooth(
+            devices, hb_l=y.height_in_blocks, wb_l=y.width_in_blocks,
+            hb_c=cb.height_in_blocks, wb_c=cb.width_in_blocks, ws=ws, hs=hs,
+            flags=flags, niter=niter, img_w=img.width, img_h=img.height)
+        oy, ocb, ocr, badv, ups = fn(plane(y), plane(cb), plane(cr),
+                                     tabs(0), tabs(1), tabs(2))
+        res.coefs[:3] = [o.cpu().numpy() for o in (oy, ocb, ocr)]
+        res.stop = int(bool(badv))
+        if ups is not None and not res.stop:
+            res.upsampled = tuple(u.cpu().numpy() for u in ups)
+        return res
+
+    # independent per-component sharding (gray, colour without the
+    # colour paths, non-YCbCr components)
+    for ci, comp in enumerate(comps):
+        qraw = np.asarray(comp.quantval, np.int32)
+        if not qraw.any():
+            continue
+        hb, wb = comp.height_in_blocks, comp.width_in_blocks
+        if res.stop:
+            # later components: plain dequantization, unclamped
+            res.coefs[ci] = dequant_only(
+                torch.from_numpy(res.coefs[ci].reshape(hb * wb, 64)).to(
+                    devices[0]),
+                torch.from_numpy(qraw).to(devices[0])).cpu().numpy(
+            ).reshape(hb, wb, 64)
+            continue
+        fn = sharded.make_sharded_smooth(
+            devices, hb=hb, wb=wb, flags=flags, niter=niter,
+            luma=(ci == 0) or not img.is_ycbcr)
+        out, badv = fn(plane(comp), *tabs(ci))
+        # the tripping component itself keeps the guard's fallback,
+        # clamped (quantsmooth.h:2596-2610, 2668-2689)
+        res.coefs[ci] = out.cpu().numpy()
+        res.stop = int(bool(badv))
+    return res
+
+
 def smooth(img, opts: QsOptions, device=None) -> SmoothResult:
     """Run the engine on a decoded-to-coefficients JPEG
     (host.jpegio.JpegImage), on the card unless ``device="cpu"``.
 
     Without a progress callback the whole image runs as one sequence of
-    device passes with no host round trip between components; with one
-    it runs component by component and pass by pass so the callback
-    can fire (and cancel) between them (_smooth_percomp).  A device
-    allocation failure degrades to plain host-side dequantization, like
-    the reference's malloc-failure path."""
+    device passes with no host round trip between components, its block
+    rows sharded over every card when there is more than one (and the
+    image is large enough, _shard_grid); with one it runs component by
+    component and pass by pass so the callback can fire (and cancel)
+    between them (_smooth_percomp).  A device allocation failure
+    degrades to plain host-side dequantization, like the reference's
+    malloc-failure path."""
     dev = resolve_device(device)
     try:
         if opts.progress is None:
-            return _smooth_fused(img, opts, dev)
+            devices = shard_devices(dev)
+            res = _try_smooth_sharded(img, opts, devices) if devices else None
+            return res if res is not None else _smooth_fused(img, opts, dev)
         return _smooth_percomp(img, opts, dev)
     except torch.cuda.OutOfMemoryError:
         return _smooth_degraded(img, opts)

@@ -16,6 +16,10 @@ The kernels of csrc/solver.cu:
   and B3/B4 on a neighbourhood the caller materialised (border lines
   or 10x10 halos), the progress path's passes; they take row chunks of
   whole planes as column-slice views;
+- ``solve_range_pix`` (B7): the pass of B2, B3 or B4 over a block range
+  of a shard's ghost-extended grid, with the edges given by the caller,
+  into a range of a whole-size output: the sharded resident loop's pass
+  (parallel/sharded.py);
 - ``peak_chains`` (T3): the card's fp32 peak probe, on no path.
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version
@@ -40,7 +44,8 @@ from . import planar
 LAUNCHES = {"idct_pix": 0, "solve_rebalance_pix": 0,
             "solve_fused_pix_joint": 0, "solve_fused_pix_lq": 0,
             "solve_rebalance": 0, "solve_fused_joint": 0,
-            "solve_fused_lq": 0, "peak": 0}
+            "solve_fused_lq": 0, "solve_range_pix": 0,
+            "solve_range_pix_joint": 0, "solve_range_pix_lq": 0, "peak": 0}
 
 _TAB_CACHE = {}
 
@@ -280,6 +285,81 @@ def solve_fused(coef, halo, image2, div, x1, qshr, flags, do_rebalance,
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out, pix_out
+
+
+# B7's preambles, as csrc/solver.cu numbers them
+_PRE_JOINT, _PRE_LQ, _PRE_BORDERS = 0, 1, 2
+
+
+def check_range(S, wb, b0, b1, edges):
+    """Raise unless blocks [b0, b1) of an S-block grid of rows wb blocks
+    wide read only blocks of the grid: a range that starts in the first
+    row needs that row's top edge flagged, one that ends in the last row
+    that row's bottom edge."""
+    top_row, bot_row = edges
+    if wb < 1 or S % wb or not 0 <= b0 <= b1 <= S:
+        raise ValueError(f"bad range [{b0}, {b1}) of {S} blocks, wb={wb}")
+    if b1 > b0 and ((b0 < wb and top_row != 0)
+                    or (b1 > S - wb and bot_row != S // wb - 1)):
+        raise ValueError(f"range [{b0}, {b1}) with edges {edges} reads "
+                         f"beyond the {S // wb}-row grid")
+
+
+def solve_range_pix(coef, pix, image2, div, x1, qshr, flags, do_rebalance,
+                    wb, b0, b1, edges, coef_out, pix_out=None):
+    """One resident pass over blocks [b0, b1) only (B7): B2 when
+    ``image2`` is None and not ``flags & LOW_QUALITY``, else B3 (JOINT_YUV
+    preamble, ``image2`` given) or B4 (LOW_QUALITY preamble); the sweep
+    runs unless LOW_QUALITY.
+
+    coef, pix int32[64, S] the whole planes of a grid with rows wb blocks
+    wide (pix: the previous pass's pixels, from which each block's
+    neighbourhood is read); image2 int32[100, S] or None; ``edges =
+    (top_row, bot_row)``: the grid row whose top edge replicates and the
+    one whose bottom edge does, -1 for none (the left and right edges are
+    the grid's columns).  Writes blocks [b0, b1) of coef_out and, when
+    given, of pix_out (the IDCT of the result), both int32[64, S] that
+    alias no input; their other blocks are left as they were."""
+    S = coef.shape[1]
+    check_range(S, wb, b0, b1, edges)
+    ins = {t.data_ptr() for t in (coef, pix, image2) if t is not None}
+    outs = [t.data_ptr() for t in (coef_out, pix_out) if t is not None]
+    if ins & set(outs) or len(set(outs)) < len(outs):
+        raise ValueError("B7's outputs may alias no input or each other")
+    if b1 == b0:
+        return
+    if image2 is None and flags & LOW_QUALITY:
+        name, pre = "solve_range_pix_lq", _PRE_LQ
+    elif image2 is None:
+        name, pre = "solve_range_pix", _PRE_BORDERS
+    else:
+        name, pre = "solve_range_pix_joint", _PRE_JOINT
+    sweep = not flags & LOW_QUALITY
+    tab = solver_tables(flags, coef.device) if sweep else None
+    ts = [t for t in (coef, pix, image2, div, x1, qshr, tab, coef_out,
+                      pix_out) if t is not None]
+    if _is_cpu(*ts):
+        planar.solve_range_pix(coef, pix, image2, div, x1, qshr, tab, flags,
+                               do_rebalance, wb, b0, b1, edges, coef_out,
+                               pix_out)
+        return
+    for t, n in ((coef, "coef"), (pix, "pix"), (coef_out, "coef_out"),
+                 (pix_out, "pix_out")):
+        if t is not None:
+            _check(t, torch.int32, (64, S), n)
+    if image2 is not None:
+        _check(image2, torch.int32, (100, S), "image2")
+    _check_tables(div, x1, qshr)
+    lib = _build.load()
+    with torch.cuda.device(coef.device):
+        err = lib.jq_solve_range_pix(
+            coef.data_ptr(), pix.data_ptr(), _ptr(image2), coef_out.data_ptr(),
+            _ptr(pix_out), div.data_ptr(), x1.data_ptr(), qshr.data_ptr(),
+            _ptr(tab), pre, tab.shape[1] if sweep else 0, S, wb, b0, b1,
+            edges[0], edges[1], int(bool(do_rebalance)),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
 
 
 PEAK_CHAINS = (1, 4, 16)

@@ -8,6 +8,9 @@ kernels (csrc/solver.cu) and the block-wise colour glue.
   preamble, sweep, rebalance on a given 10x10 halo), the non-Pallas
   branch of ``jpegqs_tpu.engine.block_pass_p``; ``solve_fused_pix``,
   the plain version of B3/B4, gathers the halo and calls it;
+- ``solve_range_pix``: plain version of B7, the pass of B2/B3/B4 over a
+  block range with the edges given (``range_halo10``), the sharded
+  loop's pass;
 - the 10x10 halos, downsample and UPSAMPLE_UV in block form, which run
   as this same eager torch on the card (the JAX package runs them as XLA
   ops, outside any Pallas kernel).
@@ -366,6 +369,69 @@ def solve_fused_pix(coef, pix, image2, div, x1, qshr, tab, flags,
 
 
 # ---------------------------------------------------------------------------
+# B7: a resident pass over a block range with explicit edges
+# ---------------------------------------------------------------------------
+
+def range_halo10(pix, wb, b0, b1, edges):
+    """The 10x10 halos int32[100, b1-b0] of blocks [b0, b1) of a plane
+    pix int32[64, S] whose rows are wb blocks wide, read from the whole
+    plane with the edges given, not derived from the position:
+    ``edges = (top_row, bot_row)``, the block row whose top line
+    replicates (no neighbour above is read) and the one whose bottom line
+    does; -1 for none.  The left and right edges are the grid's columns.
+    Corners as in blocks_halo10: the vertical ring goes on first."""
+    top_row, bot_row = edges
+    dev = pix.device
+    b = torch.arange(b0, b1, device=dev)
+    row = b // wb
+    t, d = row == top_row, row == bot_row
+    lft, rgt = b % wb == 0, b % wb == wb - 1
+    cols = torch.arange(8, device=dev)
+
+    def column(x, c):
+        """Pixel column c of blocks x with their vertical ring -> [10, n]
+        (x shares b's row, so b's row edges are its own)."""
+        up = pix[torch.where(t, c, 56 + c), torch.where(t, x, x - wb)]
+        dn = pix[torch.where(d, 56 + c, c), torch.where(d, x, x + wb)]
+        return torch.cat([up[None], pix[cols[:, None] * 8 + c, x[None]],
+                          dn[None]])
+
+    mid = torch.stack([column(b, c) for c in range(8)], dim=1)  # [10, 8, n]
+    left = torch.where(lft, column(b, 0), column(torch.where(lft, b, b - 1),
+                                                 7))
+    right = torch.where(rgt, column(b, 7),
+                        column(torch.where(rgt, b, b + 1), 0))
+    return torch.cat([left[:, None], mid, right[:, None]], dim=1).reshape(
+        100, -1)
+
+
+def solve_range_pix(coef, pix, image2, div, x1, qshr, tab, flags,
+                    do_rebalance, wb, b0, b1, edges, coef_out, pix_out=None):
+    """One resident pass over blocks [b0, b1) only, the plain version of
+    kernel B7: B2 (``image2`` None and no LOW_QUALITY), B3 (``image2``
+    given) or B4 (LOW_QUALITY) on the blocks of the range, their
+    neighbours read from the whole planes coef/pix int32[64, S] (image2
+    int32[100, S]) with the edges of ``edges`` (range_halo10).  Writes
+    the range of coef_out (and of pix_out, the IDCT of the result, when
+    given) in place; the rest of both is left as it was."""
+    s = slice(b0, b1)
+    halo = range_halo10(pix, wb, b0, b1, edges)
+    want_pix = pix_out is not None
+    if image2 is not None or flags & LOW_QUALITY:
+        out, new_pix = solve_fused(
+            coef[:, s], halo, None if image2 is None else image2[:, s], div,
+            x1, qshr, tab, flags, do_rebalance, want_pix)
+    else:
+        h = halo.reshape(10, 10, -1)
+        borders = torch.cat([h[0, 1:9], h[9, 1:9], h[1:9, 0], h[1:9, 9]])
+        out, new_pix = solve_rebalance(coef[:, s], borders, div, x1, qshr,
+                                       tab, do_rebalance, want_pix)
+    coef_out[:, s] = out
+    if want_pix:
+        pix_out[:, s] = new_pix
+
+
+# ---------------------------------------------------------------------------
 # Downsample and UPSAMPLE_UV in block form (sampling factors 1 and 2)
 # ---------------------------------------------------------------------------
 
@@ -409,10 +475,11 @@ def _lowres_to_hires_blocks(x, hb_l, wb_l, hb_c, wb_c, ws, hs):
 
 
 def upsample_chroma_blocks(chroma_halo, luma2_halo, luma_pix, img_w, img_h,
-                           ws, hs, hb_l, wb_l, hb_c, wb_c):
+                           ws, hs, hb_l, wb_l, hb_c, wb_c, row0=0,
+                           hb_l_total=None):
     """UPSAMPLE_UV in block form (reference: quantsmooth.h:1851-2394,
-    2691-2752), one device: chroma_halo / luma2_halo int32[10, 10, Bc]
-    (the component's pixels and the downsampled luma), luma_pix
+    2691-2752): chroma_halo / luma2_halo int32[10, 10, Bc] (the
+    component's pixels and the downsampled luma), luma_pix
     int32[8, 8, Bl]; ws, hs in {1, 2}.  Returns the full-resolution
     chroma pixels int32[8, 8, Bl].
 
@@ -420,9 +487,17 @@ def upsample_chroma_blocks(chroma_halo, luma2_halo, luma_pix, img_w, img_h,
     luma_ds*scale + 0.5; the output is trunc(luma*scale + offset)
     clamped to 0..255, then the replicate tails: the right edge for the
     first min(8, h1)*hs rows only (the reference quirk), then the
-    bottom rows."""
+    bottom rows.
+
+    Row-sharded use: hb_l/hb_c are the shard's block rows, ``row0`` its
+    first global pixel row and ``hb_l_total`` the image's luma block
+    rows.  Both tails stay inside one shard: the bottom tail and its
+    source row lie in the last real block row, and the right tail's
+    source column in every row of the shard."""
     w1 = (img_w + ws - 1) // ws
     h1 = (img_h + hs - 1) // hs
+    if hb_l_total is None:
+        hb_l_total = hb_l
     a = luma2_halo.to(F32)
     b = chroma_halo.to(F32)
     scale, _, _ = _regression_f(a, b)
@@ -436,10 +511,11 @@ def upsample_chroma_blocks(chroma_halo, luma2_halo, luma_pix, img_w, img_h,
     out = torch.clamp(torch.trunc(val), 0, 255).to(I32)
 
     o4 = out.reshape(8, 8, hb_l, wb_l)
-    hh, ww = hb_l * 8, wb_l * 8
+    hh, ww = hb_l_total * 8, wb_l * 8
     dev = out.device
     row_g = (torch.arange(8, device=dev).reshape(8, 1, 1, 1)
-             + 8 * torch.arange(hb_l, device=dev).reshape(1, 1, hb_l, 1))
+             + 8 * torch.arange(hb_l, device=dev).reshape(1, 1, hb_l, 1)
+             + row0)
     col_g = (torch.arange(8, device=dev).reshape(1, 8, 1, 1)
              + 8 * torch.arange(wb_l, device=dev).reshape(1, 1, 1, wb_l))
     if w1 * ws < ww:
@@ -451,9 +527,11 @@ def upsample_chroma_blocks(chroma_halo, luma2_halo, luma_pix, img_w, img_h,
         mask = (row_g < rep_rows) & (col_g >= w1 * ws)
         o4 = torch.where(mask, src_col[:, None, :, None], o4)
     if h1 * hs < hh:
-        # bottom replicate from row h1*hs-1 (quantsmooth.h:2729-2730)
+        # bottom replicate from row h1*hs-1 (quantsmooth.h:2729-2730); a
+        # shard that does not hold that row masks its result away
         sr = h1 * hs - 1
-        src_row = o4[sr % 8, :, min(sr // 8, hb_l - 1)]        # [8, wb_l]
+        lb = min(max(sr // 8 - row0 // 8, 0), hb_l - 1)
+        src_row = o4[sr % 8, :, lb]                            # [8, wb_l]
         mask = row_g >= h1 * hs
         o4 = torch.where(mask, src_row[None, :, None, :], o4)
     return o4.reshape(8, 8, hb_l * wb_l)

@@ -107,12 +107,19 @@ def test_launch_counts(cuda):
     cuda_solver.solve_fused(coef, halo, image2, *tabs, JOINT_YUV, True)
     cuda_solver.solve_fused(coef, halo, None, *tabs, LOW_QUALITY, True)
     cuda_solver.peak_chains(torch.ones(256, device=cuda), 4, 8)
+    out = torch.zeros_like(coef)
+    for i2, flags in ((None, 0), (image2, JOINT_YUV), (None, LOW_QUALITY)):
+        cuda_solver.solve_range_pix(coef, pix, i2, *tabs, flags, True, 5, 5,
+                                    15, (1, 2), out)
+    cuda_solver.solve_range_pix(coef, pix, None, *tabs, 0, True, 5, 5, 5,
+                                (1, 2), out)        # empty range: no launch
     cuda_solver.idct_pix(coef.cpu())                 # plain: not counted
     assert cuda_solver.LAUNCHES == {
         "idct_pix": 1, "solve_rebalance_pix": 1,
         "solve_fused_pix_joint": 1, "solve_fused_pix_lq": 1,
         "solve_rebalance": 1, "solve_fused_joint": 1, "solve_fused_lq": 1,
-        "peak": 1}
+        "solve_range_pix": 1, "solve_range_pix_joint": 1,
+        "solve_range_pix_lq": 1, "peak": 1}
 
 
 def _chunk_inputs(cuda, seed, joint):
@@ -210,6 +217,68 @@ def test_progress_run_launches(cuda):
     assert cuda_solver.LAUNCHES["solve_rebalance"] == 3 * hb[0]
     assert cuda_solver.LAUNCHES["solve_fused_joint"] == 3 * (hb[1] + hb[2])
     assert all(np.array_equal(a, b) for a, b in zip(res.coefs, plain.coefs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags,joint", [
+    (0, False), (DIAGONALS, False), (JOINT_YUV | DIAGONALS, True),
+    (JOINT_YUV, True), (JOINT_YUV | LOW_QUALITY | DIAGONALS, True),
+    (LOW_QUALITY | DIAGONALS, False)])
+def test_solve_range_on_card(cuda, flags, joint):
+    """B7 vs its plain version on random block ranges of an 11x7 grid with
+    random edges (a range that starts in the first row has its top edge
+    there, one that ends in the last row its bottom edge), rebalance and
+    pixels on and off."""
+    hb, wb = 11, 7
+    S = hb * wb
+    coef, pix, tabs = _inputs(hb, wb, 40 + flags, cuda)
+    rng = np.random.default_rng(flags)
+    image2 = (torch.from_numpy(rng.integers(0, 256, (100, S)).astype(
+        np.int32)).to(cuda) if joint else None)
+    tab = (None if flags & LOW_QUALITY
+           else cuda_solver.solver_tables(flags, cuda))
+    for _ in range(8):
+        b0 = int(rng.integers(0, S))
+        b1 = int(rng.integers(b0 + 1, S + 1))
+        top = 0 if b0 < wb else int(rng.integers(-1, hb))
+        bot = hb - 1 if b1 > S - wb else int(rng.integers(-1, hb))
+        for reb, want_pix in ((True, True), (False, False)):
+            got = [torch.zeros_like(coef) for _ in range(2)]
+            want = [torch.zeros_like(coef) for _ in range(2)]
+            cuda_solver.solve_range_pix(coef, pix, image2, *tabs, flags, reb,
+                                        wb, b0, b1, (top, bot), got[0],
+                                        got[1] if want_pix else None)
+            planar.solve_range_pix(coef, pix, image2, *tabs, tab, flags, reb,
+                                   wb, b0, b1, (top, bot), want[0],
+                                   want[1] if want_pix else None)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", ["0", "1"])
+def test_sharded_run_on_card(cuda, monkeypatch, overlap):
+    """Two shards of one card through engine._try_smooth_sharded (the
+    YCbCr flow at q6 and q2, the per-component flow at q3; 6 chroma rows
+    over 2 shards, exchange/compute overlap off and on) equal the
+    single-device run, and the passes went through B7."""
+    from jpegqs_tpu_torch import QsOptions, engine, synth
+    img = synth.make_image(96, 112, color=True, seed=3)
+    monkeypatch.setenv("JPEGQS_SHARD_MIN_BLOCKS", "0")
+    monkeypatch.setenv("JPEGQS_OVERLAP", overlap)
+    for q in (6, 2, 3):
+        opts = QsOptions.from_quality(q, 3)
+        cuda_solver.reset_launches()
+        got = engine._try_smooth_sharded(img, opts, [cuda] * 2)
+        assert sum(v for k, v in cuda_solver.LAUNCHES.items()
+                   if k.startswith("solve_range")) > 0
+        want = engine.smooth(img, opts)
+        assert got.stop == want.stop == 0
+        assert all(np.array_equal(a, b) for a, b in zip(got.coefs,
+                                                        want.coefs))
+        assert (got.upsampled is None) == (want.upsampled is None)
+        for a, b in zip(got.upsampled or (), want.upsampled or ()):
+            assert np.array_equal(a, b)
 
 
 @pytest.mark.cuda
