@@ -9,7 +9,9 @@ It builds the CUDA kernels from csrc/ and, failing loudly (non-zero exit)
 on any mismatch:
 
 1. prints the card (nvidia-smi name, power limit) and the versions;
-2. builds the kernels and prints the build time and the ptxas report;
+2. builds the kernels and prints the build time and the ptxas report of
+   every kernel instantiation (registers, spills, static shared memory),
+   B2's and B3's marked with the CTAs of 128 threads an SM holds;
 3. runs the arithmetic canaries: no mul+add contraction, an exact fp32
    left fold, IEEE division;
 4. T3, the fp32 peak probe: bit-identical to its plain version on a small
@@ -19,9 +21,10 @@ on any mismatch:
    card: B1/B2 at flags 0 and DIAGONALS, B3 (JOINT_YUV preamble) with the
    sweep at NT 242 and 144 and without it, B4 (LOW_QUALITY preamble);
    rebalance on and off, pixels emitted or not, edge shapes (hb=1, wb=1,
-   1x1), two images back to back; B5/B6 (the same passes on given border
-   lines / halos) at B = 1, 13, 117 and on row-chunk views of a 9x13
-   plane; and the main path's full-size planes;
+   1x1, a 37x53 grid of partial CTAs), two images back to back; B5/B6
+   (the same passes on given border lines / halos) at B = 1, 13, 117 and
+   on row-chunk views of a 9x13 plane; and the main path's full-size
+   planes, B3 also on a chroma plane of 4:4:4 size (187,500 blocks);
 6. reproduces the golden SHA-256 digests of the JAX package's output
    planes, upsampled planes and stop flag (GOLDEN below;
    tests/test_torch_isolation.py recomputes them with jpegqs_tpu.engine)
@@ -387,15 +390,57 @@ def phase_card(torch):
         f"python {sys.version.split()[0]}")
 
 
-def phase_build():
+# B3's dynamic shared memory per CTA (kJointSmem in csrc/solver.cu); ptxas
+# reports static shared memory only
+JOINT_SMEM = 100 * 128 * 4
+
+# B2's and B3's instantiations, whose designs aim at 4 CTAs of 128 threads
+# per SM: marked in the ptxas report with the CTAs an SM holds
+OCCUPANCY_MARKED = {
+    "solve_rebalance_pix_kernel<144>": ("B2", 0),
+    "solve_rebalance_pix_kernel<242>": ("B2", 0),
+    "solve_joint_pix_kernel<0>": ("B3", JOINT_SMEM),
+    "solve_joint_pix_kernel<144>": ("B3", JOINT_SMEM),
+    "solve_joint_pix_kernel<242>": ("B3", JOINT_SMEM)}
+
+
+def ctas_per_sm(registers, smem, threads=128):
+    """CTAs of ``threads`` threads that one H100 SM holds at ``registers``
+    a thread and ``smem`` bytes of shared memory a CTA: 65,536 registers,
+    allocated per warp in units of 256; 228 KB of shared memory, 1 KB of
+    it reserved per CTA; 2,048 threads; 32 CTAs."""
+    warp_regs = -(-registers * 32 // 256) * 256
+    return min(65536 // (warp_regs * (threads // 32)),
+               228 * 1024 // (smem + 1024), 2048 // threads, 32)
+
+
+def ptxas_lines(report, card):
+    """One line per kernel instantiation of a ptxas report
+    (``_build.ptxas_report``), B2's and B3's first, marked with the CTAs an
+    SM holds."""
+    lines = []
+    for r in sorted(report, key=lambda r: (r["name"] not in OCCUPANCY_MARKED,
+                                           r["name"])):
+        line = (f"{r['name']}: {r['registers']} registers, spill stores "
+                f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, "
+                f"static smem {r['smem']} B")
+        if r["name"] in OCCUPANCY_MARKED:
+            tag, dynamic = OCCUPANCY_MARKED[r["name"]]
+            n = ctas_per_sm(r["registers"], r["smem"] + dynamic)
+            line = (f">> {tag} {line}, dynamic smem {dynamic} B, {n} CTAs "
+                    f"of 128 threads per SM [{card}]")
+        lines.append(line)
+    return lines
+
+
+def phase_build(card):
     t0 = time.perf_counter()
     path = _build.build()
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {path}")
     with open(path + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"  ptxas: {line.strip()}")
+        for line in ptxas_lines(_build.ptxas_report(f.read()), card):
+            log(f"  ptxas: {line}")
 
 
 def phase_canaries(torch):
@@ -567,7 +612,7 @@ def phase_kernels_vs_plain(torch, stats):
     n = 0
     for flags, joint in FUSED_FLAG_SETS:
         for hb, wb, nimg in ((1, 13, 1), (9, 1, 1), (1, 1, 1), (9, 13, 1),
-                             (5, 7, 2)):
+                             (5, 7, 2), (37, 53, 1)):
             for reb in (True, False):
                 for want_pix in (True, False):
                     B = hb * wb * nimg
@@ -583,8 +628,8 @@ def phase_kernels_vs_plain(torch, stats):
                     n += 1
     log(f"B3/B4 vs plain: {n} small cases bit-identical (flags "
         f"{', '.join(FLAG_NAMES[f] for f, _ in FUSED_FLAG_SETS)}; hb,wb in "
-        f"1x13, 9x1, 1x1, 9x13 and two 5x7 images back to back; rebalance "
-        f"on/off; pixels emitted or not)")
+        f"1x13, 9x1, 1x1, 9x13, 37x53 and two 5x7 images back to back; "
+        f"rebalance on/off; pixels emitted or not)")
     n = 0
     given_sets = ([(f, False, False) for f in (0, DIAGONALS)]
                   + [(f, True, joint) for f, joint in FUSED_FLAG_SETS])
@@ -710,6 +755,24 @@ def _plane_inputs(img, ci):
     return coef, plain_idct_pix(coef), tabs, hb, wb
 
 
+def main_path_planes(img):
+    """The main path's largest kernel inputs on the 4:2:0 photo img: its
+    luma plane's (coef, pix, tabs, hb, wb), its first chroma plane's, the
+    chroma passes' image2 from the downsampled luma, and a chroma plane of
+    4:4:4 size's image2: the luma plane's own halo (at 4:4:4 the
+    downsampled luma is the luma itself)."""
+    coef, pix, tabs, hb, wb = _plane_inputs(img, 0)
+    ccoef, cpix, ctabs, hbc, wbc = _plane_inputs(img, 1)
+    B, Bc = hb * wb, hbc * wbc
+    image2 = planar.blocks_halo10(planar.downsample_blocks(
+        pix.reshape(8, 8, B), hb, wb, hbc, wbc, 2, 2), hbc, wbc).reshape(
+        100, Bc)
+    image2_444 = planar.blocks_halo10(pix.reshape(8, 8, B), hb, wb).reshape(
+        100, B)
+    return (coef, pix, tabs, hb, wb, ccoef, cpix, ctabs, hbc, wbc, image2,
+            image2_444)
+
+
 def phase_full_plane(torch, img, stats, card, t3_rate):
     """Every kernel vs plain on the main path's largest planes of the
     12 MP photo -- B1, B2, B4, B5 and B6 (LQ) on its 375x500 luma plane,
@@ -717,21 +780,20 @@ def phase_full_plane(torch, img, stats, card, t3_rate):
     B5/B6's neighbourhoods materialised from the whole plane as the
     progress path does -- and the per-kernel numbers of the JSON line:
     each kernel's first timed configuration, the others as variants."""
-    coef, pix, tabs, hb, wb = _plane_inputs(img, 0)
-    B = hb * wb
+    (coef, pix, tabs, hb, wb, ccoef, cpix, ctabs, hbc, wbc, image2,
+     image2_444) = main_path_planes(img)
+    B, Bc = hb * wb, hbc * wbc
     for flags in (0, DIAGONALS):
         e1, e2 = check_pair(torch, coef, pix, tabs, flags, True, hb, wb)
     stats["solve_fused_pix_lq"]["max_abs_err"] = max(
         stats["solve_fused_pix_lq"]["max_abs_err"],
         check_fused(torch, coef, pix, None, tabs, Q_FLAGS[0], True, hb, wb))
-    ccoef, cpix, ctabs, hbc, wbc = _plane_inputs(img, 1)
-    Bc = hbc * wbc
-    image2 = planar.blocks_halo10(planar.downsample_blocks(
-        pix.reshape(8, 8, B), hb, wb, hbc, wbc, 2, 2), hbc, wbc).reshape(
-        100, Bc)
-    for flags in (Q_FLAGS[6], Q_FLAGS[5], Q_FLAGS[2]):
-        err = check_fused(torch, ccoef, cpix, image2, ctabs, flags, True,
-                          hbc, wbc)
+    for c, p, i2, t, h, w, flags in (
+            [(ccoef, cpix, image2, ctabs, hbc, wbc, f)
+             for f in (Q_FLAGS[6], Q_FLAGS[5], Q_FLAGS[2])]
+            + [(coef, pix, image2_444, tabs, hb, wb, f)
+               for f in (Q_FLAGS[6], Q_FLAGS[2])]):
+        err = check_fused(torch, c, p, i2, t, flags, True, h, w)
         stats["solve_fused_pix_joint"]["max_abs_err"] = max(
             stats["solve_fused_pix_joint"]["max_abs_err"], err)
     borders = engine.neighbourhood(pix, None, 0, hb, wb)
@@ -746,8 +808,9 @@ def phase_full_plane(torch, img, stats, card, t3_rate):
         key = given_key(fused, i2 is not None)
         stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
     log(f"kernels vs plain: full {hb}x{wb} luma plane (B1; B2 and B5 at "
-        f"flags 0 and DIAGONALS; B4 and B6 at q0) and {hbc}x{wbc} chroma "
-        f"plane (B3 at q6, q5 and q2 flags; B6 at q6 and q2) bit-identical")
+        f"flags 0 and DIAGONALS; B4 and B6 at q0; B3 at q6 and q2 as a "
+        f"4:4:4-sized chroma plane) and {hbc}x{wbc} chroma plane (B3 at q6, "
+        f"q5 and q2 flags; B6 at q6 and q2) bit-identical")
 
     def timed(key, name, fn, plain, nbytes, ops, what, plain_reps=3):
         row = {"ms": cuda_ms(fn), "plain_ms": cuda_ms(plain, plain_reps),
@@ -799,6 +862,16 @@ def phase_full_plane(torch, img, stats, card, t3_rate):
           lambda: plain_solve_fused_pix(*j2), Bc * (blk * 4 + 100 * 4),
           Bc * JOINT_PREAMBLE_OPS, f"on {Bc} blocks (q2 chroma pass, no "
           f"sweep)")
+    for q, nt, terms, sweep in ((6, 242, terms242, "sweep NT 242"),
+                                (2, 0, 0, "no sweep")):
+        j444 = (coef, pix, image2_444, *tabs, Q_FLAGS[q], True, hb, wb)
+        timed("solve_fused_pix_joint", "B3 solve_fused_pix (joint)",
+              lambda: cuda_solver.solve_fused_pix(*j444),
+              lambda: plain_solve_fused_pix(*j444),
+              B * (blk * 4 + 100 * 4) + 64 * nt * 4,
+              B * (JOINT_PREAMBLE_OPS + terms),
+              f"on {B} blocks (q{q} pass on a 4:4:4-sized chroma plane, "
+              f"{sweep})", plain_reps=1)
     # B5/B6 as the progress path calls them: materialised neighbourhoods
     # (borders int32[32, B], halos int32[100, B]) in, coefficients out
     for flags, nt, terms in ((0, 144, terms144), (DIAGONALS, 242, terms242)):
@@ -1485,8 +1558,8 @@ def device_breakdown(torch, run, dev_ms, card, window="device run"):
         name: sum(r[0] for r in rows if marker in r[2])
         for name, marker in (("B1", "idct_pix_kernel"),
                              ("B2", "solve_rebalance_pix_kernel"),
-                             ("B3", "solve_fused_pix_kernel<0"),
-                             ("B4", "solve_fused_pix_kernel<1"),
+                             ("B3", "solve_joint_pix_kernel"),
+                             ("B4", "solve_lq_pix_kernel"),
                              ("B5", "solve_rebalance_kernel"),
                              ("B6 joint", "solve_fused_kernel<0"),
                              ("B6 lq", "solve_fused_kernel<1"),
@@ -1555,7 +1628,7 @@ def main() -> int:
     phase_card(torch)
     card = nvidia_smi()
     stats = {name: {"max_abs_err": 0} for name in cuda_solver.LAUNCHES}
-    phase_build()
+    phase_build(card)
     canaries = phase_canaries(torch)
     stamp("build, canaries")
     t3_rate = phase_peak(torch, stats, card)
@@ -1592,6 +1665,7 @@ def main() -> int:
         ("gray_2mp", gray, 0, 3, {"idct_pix": 1, "solve_fused_pix_lq": 3}),
     ), card)
     stamp("main path")
+    main_launches = dict(launches)
     progress_launches, progress_summaries = phase_progress(torch, color, card)
     stamp("progress path")
     phase_b7_vs_plain(torch, stats)
@@ -1637,6 +1711,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "jpegqs_tpu_torch/csrc/solver.cu",
             "replaces": REPLACES[name], "launches": launches.get(name, 0),
+            "main_path_launches": main_launches.get(name, 0),
             "on_path": name not in OFF_PATH,
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],

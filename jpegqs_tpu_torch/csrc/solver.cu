@@ -12,6 +12,9 @@
 // planar int32[64, B] -- row k (natural position / pixel r*8+c) has stride B,
 // so thread b of a warp reads address k*B + b and neighbouring threads read
 // neighbouring words.  One thread owns one 8x8 block for the whole pass.
+// The solver tables are f32[64, pitch]: a row holds the NT weights of one
+// coefficient, padded with zeros to a multiple of four (pitch), so a row
+// reads as float4.
 //
 // Bit-exactness against the C scalar reference (and so against the JAX
 // package):
@@ -28,6 +31,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -95,9 +100,11 @@ __device__ __forceinline__ void islow_pass(const u32 (&x)[8], u32 (&o)[8]) {
 
 // Full islow IDCT of one block (idct.h:468-539): columns, DESCALE 2^11,
 // rows, +CENTER rounding shift 2^18, clamp to 0..255.  c and p are indexed
-// statically only, so with the caller's loops unrolled both stay in
-// registers.
-__device__ __forceinline__ void idct_block(const int (&c)[64], int* p) {
+// statically only, so with the caller's loops unrolled a register array
+// stays in registers; c may also be a thread's column of shared memory, p
+// an fp32 array (the pixels 0..255 are exact in fp32).
+template <class C, class P>
+__device__ __forceinline__ void idct_block(const C& c, P& p) {
   int ws[64];
 #pragma unroll
   for (int col = 0; col < 8; ++col) {
@@ -206,22 +213,80 @@ idct_pix_kernel(const int* __restrict__ coef, int* __restrict__ pix,
 }
 
 // ---------------------------------------------------------------------------
-// The pieces of a solver pass that B2, B3 and B4 share.
+// The pieces of a solver pass that B2-B7 share.
 // ---------------------------------------------------------------------------
 
+// A thread's column of a shared-memory array laid out [row][kThreads]:
+// element k at p[k * kThreads], so the 32 threads of a warp touch 32
+// neighbouring words (or half-words) and no two of them a bank.
+template <typename T>
+struct SmemCol {
+  T* p;
+  __device__ __forceinline__ T& operator[](int k) const {
+    return p[k * kThreads];
+  }
+};
+
+// Keeps the compiler from moving this thread's shared-memory accesses
+// across the point where a region changes its element type (B3 overlays
+// its u16 halos with int32 coefficients).
+__device__ __forceinline__ void smem_retype() {
+  asm volatile("" ::: "memory");
+}
+
+// Terms [J0, J1) of the a2/a3 folds of one sweep step (J0 a multiple of
+// four; tr the step's table row, padded with zeros to a multiple of four
+// columns).  The weights are read four at a time, one uniform float4 load;
+// each diff is one fp32 subtract of two pixel values, integers 0..255, so
+// it equals the int subtract and its conversion; every product and sum is
+// __fmul_rn/__fadd_rn in the scalar term order.
+template <int J0, int J1>
+__device__ __forceinline__ void fold_terms(const float (&v)[96],
+                                           const float* __restrict__ tr,
+                                           float rng, float& a2, float& a3) {
+#pragma unroll
+  for (int j4 = J0; j4 < J1; j4 += 4) {
+    const float4 w4 = __ldg(reinterpret_cast<const float4*>(tr + j4));
+    const float wq[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (j4 + q >= J1) break;  // the row's zero pad is never folded
+      int ia, ib;
+      term_idx(j4 + q, ia, ib);
+      const float d = __fsub_rn(v[ia], v[ib]);
+      float t = fmaxf(__fsub_rn(rng, fabsf(d)), 0.0f);  // integral: exact
+      t = __fmul_rn(t, t);
+      const float u = __fmul_rn(d, t);
+      const float w = __fmul_rn(wq[q], t);
+      a2 = __fadd_rn(a2, __fmul_rn(u, w));
+      a3 = __fadd_rn(a3, __fmul_rn(w, w));
+    }
+  }
+}
+
 // The k = 63..1 sweep (quantsmooth.h:1403-1565) on one block: c the
-// coefficients, v[64..95] the four border lines; v[0..63] receive the
-// refreshed pixels.  Every product and sum of the a2/a3 folds is
-// __fmul_rn/__fadd_rn in the scalar term order.  A thread refreshes (IDCT)
-// only at a zigzag refresh point and only when one of its coefficients
-// changed, as the C reference does; the TPU kernel's masked full-tile
-// refresh gives the same values.
-template <int NT>
-__device__ __forceinline__ void sweep(int (&c)[64], int (&v)[96],
+// coefficients, indexed by the step (a thread's column of shared memory or
+// a local array); v[64..95] the four border lines; v[0..63] receive the
+// refreshed pixels.  The pixel state is fp32: the pixels are integers
+// 0..255, exact in fp32, converted once at each refresh and not at each
+// term.  tab is f32[64, pitch], a step reading row i.
+// A step folds its terms in the scalar order but skips the two classes
+// whose weights are all zero, as the scalar code does: the 56 horizontal
+// diffs when i & 7 == 0 and the 56 vertical ones when i <= 7.  A zero
+// weight adds +-0 to both folds; they start at +0 and so never hold -0,
+// which +-0 leaves unchanged: the skip is exact.  The branches depend on
+// the step only, the same in every thread.
+// A thread refreshes (IDCT) only at a zigzag refresh point and only when
+// one of its coefficients changed, as the C reference does; the TPU
+// kernel's masked full-tile refresh gives the same values.
+template <int NT, class C>
+__device__ __forceinline__ void sweep(C& c, float (&v)[96],
                                       const int* __restrict__ div,
                                       const int* __restrict__ x1,
                                       const int* __restrict__ qshr,
-                                      const float* __restrict__ tab) {
+                                      const float* __restrict__ tab,
+                                      int pitch) {
+  static_assert(NT == 144 || NT == 242, "NT is 144 or 242");
   bool need = true;
   for (int k = 0; k < 63; ++k) {
     const int i = c_iseq[k];
@@ -230,20 +295,12 @@ __device__ __forceinline__ void sweep(int (&c)[64], int (&v)[96],
       need = false;
     }
     const float rng = (float)(div[i] * 2);
-    const float* tr = tab + i * NT;
+    const float* tr = tab + i * pitch;
     float a2 = 0.0f, a3 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      int ia, ib;
-      term_idx(j, ia, ib);
-      const float d = (float)(v[ia] - v[ib]);
-      float t = fmaxf(__fsub_rn(rng, fabsf(d)), 0.0f);  // integral: exact
-      t = __fmul_rn(t, t);
-      const float u = __fmul_rn(d, t);
-      const float w = __fmul_rn(__ldg(tr + j), t);
-      a2 = __fadd_rn(a2, __fmul_rn(u, w));
-      a3 = __fadd_rn(a3, __fmul_rn(w, w));
-    }
+    if (i & 7) fold_terms<0, 56>(v, tr, rng, a2, a3);     // horizontal
+    fold_terms<56, 88>(v, tr, rng, a2, a3);               // border
+    if (i > 7) fold_terms<88, 144>(v, tr, rng, a2, a3);   // vertical
+    if constexpr (NT > 144) fold_terms<144, NT>(v, tr, rng, a2, a3);
     const int delta = c_cast(roundf(__fdiv_rn(a2, a3)));  // half away
     if (delta != 0) {
       const int coef1 = c[i];
@@ -261,8 +318,8 @@ __device__ __forceinline__ void sweep(int (&c)[64], int (&v)[96],
 
 // AC energy restore (quantsmooth.h:1823-1848), int64 as specref
 // .rebalance_blocks; sums in uint64 so they wrap like numpy's int64.
-__device__ __forceinline__ void rebalance(int (&c)[64],
-                                          const int* __restrict__ div,
+template <class C>
+__device__ __forceinline__ void rebalance(C& c, const int* __restrict__ div,
                                           const int* __restrict__ x1,
                                           const int* __restrict__ qshr) {
   u64 m0 = 0, m1 = 0;
@@ -291,7 +348,8 @@ __device__ __forceinline__ void rebalance(int (&c)[64],
 
 // Write the block's coefficients and, when pix_out is given, their IDCT
 // (the next pass's pixels).
-__device__ __forceinline__ void emit_block(const int (&c)[64],
+template <class C>
+__device__ __forceinline__ void emit_block(const C& c,
                                            int* __restrict__ coef_out,
                                            int* __restrict__ pix_out,
                                            size_t S, int b) {
@@ -313,7 +371,7 @@ __device__ __forceinline__ void emit_block(const int (&c)[64],
 __device__ __forceinline__ void load_borders(const int* __restrict__ pix,
                                              size_t S, int b, int wb, bool t,
                                              bool d, bool l, bool r,
-                                             int (&v)[96]) {
+                                             float (&v)[96]) {
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
     v[64 + q] = pix[t ? q * S + b : (56 + q) * S + (b - wb)];
@@ -323,26 +381,50 @@ __device__ __forceinline__ void load_borders(const int* __restrict__ pix,
   }
 }
 
+// v[64..95] from the edge lines of a 10x10 halo: the fused passes' solver
+// borders are rows/columns of the very halo.
+template <class H>
+__device__ __forceinline__ void halo_borders(const H& h, float (&v)[96]) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    v[64 + q] = h[1 + q];
+    v[72 + q] = h[91 + q];
+    v[80 + q] = h[(q + 1) * 10];
+    v[88 + q] = h[(q + 1) * 10 + 9];
+  }
+}
+
 // ---------------------------------------------------------------------------
 // B2: one resident solver pass = border lines + k=63..1 sweep + rebalance +
 // emitted pixels.
 // Replaces jpegqs_tpu/ops/pallas_solver.py solve_rebalance_pix
 // (_solve_tiled aux_mode="pix": _bord_from_pix, _diffs_tile, the _GROUPS
 // sweep of _solve_kernel, _rebalance_tile, emit_pix).
-// Bound on this card: fp32 operations -- ~9 non-FMA fp32 ops per term of
+// Bound on this card: fp32 operations -- 9 non-FMA fp32 ops per term of
 // non-zero table weight per block per pass (7,648 of the 63 x NT terms at
-// NT = 144, 13,308 at NT = 242 with DIAGONALS; a zero-weight term cannot
-// change the folds, but this kernel folds it all the same), against ~1 KB
-// of coefficient/pixel traffic per block.
-// Design: one thread per block.  The refreshed pixels and the four border
-// lines live in registers (v[96]); each diff term is formed on the fly from
-// two of them (term_idx, unrolled), so no diff array touches memory; the
-// coefficients are indexed by the sweep step and sit in local memory.
+// NT = 144, 13,308 at NT = 242 with DIAGONALS), against ~1 KB of
+// coefficient/pixel traffic per block.  An SM sub-partition issues one warp
+// instruction a clock, so the bound is the issue slots of those 9; whatever
+// else a term issues, and warps waiting on loads, keep the kernel from it.
+// Design: one thread per block, 128 threads a CTA, at most 128 registers,
+// so 4 CTAs (16 warps) share an SM.  Per term the sweep issues the 9
+// operations, one fp32 subtract for the diff and a quarter of a float4
+// table load: the pixel state is fp32 (v[96], the refreshed pixels and the
+// border lines), converted at the refresh points, not per term; the two
+// all-zero weight classes are skipped on the step; the table is read four
+// weights a load.  The coefficients, indexed by the step, live in the
+// thread's column of shared memory (32 KB a CTA), not in local memory.
+// What remains between the kernel and its bound is latency: a term is a
+// chain of dependent fp32 operations, v[96] leaves few registers to overlap
+// terms, and 16 warps an SM hide only part of the wait.  At the 128-register
+// cap ptxas spills 8 bytes (the block index, one border value).  Folding two
+// steps of a refresh group per pass, border lines in shared memory and a
+// 168-register build were measured and did not pay (PERF.md, Findings).
 // pix_out never aliases pix_in: neighbours' previous-pass pixels are read
 // while others write.
 // ---------------------------------------------------------------------------
 template <int NT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 solve_rebalance_pix_kernel(const int* __restrict__ coef_in,
                            const int* __restrict__ pix_in,
                            int* __restrict__ coef_out,
@@ -350,25 +432,26 @@ solve_rebalance_pix_kernel(const int* __restrict__ coef_in,
                            const int* __restrict__ div,
                            const int* __restrict__ x1,
                            const int* __restrict__ qshr,
-                           const float* __restrict__ tab,
+                           const float* __restrict__ tab, int pitch,
                            int nblocks, int hb, int wb, int do_rebalance) {
+  __shared__ int coef_smem[64 * kThreads];
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= nblocks) return;
   const size_t S = (size_t)nblocks;
 
-  int c[64];
+  const SmemCol<int> c{coef_smem + threadIdx.x};
 #pragma unroll
   for (int k = 0; k < 64; ++k) c[k] = coef_in[k * S + b];
 
   // Edges come from the block's position inside its own image, so images
   // concatenated on the block axis never mix.
-  int v[96];
+  float v[96];
   const int loc = b % (hb * wb);
   const int by = loc / wb, bx = loc % wb;
   load_borders(pix_in, S, b, wb, by == 0, by == hb - 1, bx == 0, bx == wb - 1,
                v);
 
-  sweep<NT>(c, v, div, x1, qshr, tab);
+  sweep<NT>(c, v, div, x1, qshr, tab, pitch);
   if (do_rebalance) rebalance(c, div, x1, qshr);
   emit_block(c, coef_out, pix_out, S, b);
 }
@@ -379,17 +462,18 @@ solve_rebalance_pix_kernel(const int* __restrict__ coef_in,
 
 // The 10x10 halo of block b -- its pixels with the 1-pixel ring of its 8
 // neighbours, edge-replicated -- from the previous pass's pixels
-// (planar.blocks_halo10, pallas_solver._ring_from_pix).  The vertical ring
-// goes on first, so a corner reads the neighbour's already-extended column:
+// (planar.blocks_halo10, pallas_solver._ring_from_pix), into h[0..99]
+// (registers, or staged in shared memory).  The vertical ring goes on
+// first, so a corner reads the neighbour's already-extended column:
 // at a top-row block that is not in the left column the top-left corner is
 // pixel 7 of the LEFT neighbour, at a left-column block not in the top row
 // pixel 56 of the UP neighbour, and so on.  t, d, l, r flag the edges at
 // which the ring replicates; each ternary picks the index before the load,
 // so a flagged edge reads nothing beyond it.
+template <class H>
 __device__ __forceinline__ void load_halo(const int* __restrict__ pix,
                                           size_t S, int b, int wb, bool t,
-                                          bool d, bool l, bool r,
-                                          int (&h)[100]) {
+                                          bool d, bool l, bool r, H& h) {
   auto px = [&](int k, int blk) { return pix[(size_t)k * S + blk]; };
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
@@ -414,22 +498,41 @@ __device__ __forceinline__ void load_halo(const int* __restrict__ pix,
 // the downsampled-luma halo g (quantsmooth.h:893-920, planar
 // .joint_yuv_fblocks) -> the centred predicted block.  The statistics are
 // integers below 2^24 (sAA <= 16 * 16 * 255^2), so int32 sums converted to
-// float equal the reference's float sums exactly.
-__device__ __forceinline__ void joint_fblock(const int (&h)[100],
-                                             const int (&g)[100],
+// float equal the reference's float sums exactly.  The 3x3 windows slide
+// along each row, so each halo value of the row's three lines is read once
+// per output row.
+template <class H, class G>
+__device__ __forceinline__ void joint_fblock(const H& h, const G& g,
                                              float (&fb)[64]) {
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
+    int wa[3][3], wc[3][3];  // [dy][dx] windows of g (luma), h (chroma)
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      wa[dy][1] = g[(r + dy) * 10];
+      wa[dy][2] = g[(r + dy) * 10 + 1];
+      wc[dy][1] = h[(r + dy) * 10];
+      wc[dy][2] = h[(r + dy) * 10 + 1];
+    }
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        wa[dy][0] = wa[dy][1];
+        wa[dy][1] = wa[dy][2];
+        wa[dy][2] = g[(r + dy) * 10 + c + 2];
+        wc[dy][0] = wc[dy][1];
+        wc[dy][1] = wc[dy][2];
+        wc[dy][2] = h[(r + dy) * 10 + c + 2];
+      }
       int sa = 0, sb = 0, saa = 0, sab = 0;
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
         for (int dx = 0; dx < 3; ++dx) {
           const int w = (dy == 1 ? 2 : 1) * (dx == 1 ? 2 : 1);
-          const int a = g[(r + dy) * 10 + c + dx];
-          const int bb = h[(r + dy) * 10 + c + dx];
+          const int a = wa[dy][dx];
+          const int bb = wc[dy][dx];
           sa += w * a;
           sb += w * bb;
           saa += w * a * a;
@@ -441,7 +544,7 @@ __device__ __forceinline__ void joint_fblock(const int (&h)[100],
       // guarded divide: no NaN reaches fminf/fmaxf (which would drop it)
       float scale = s_aa != 0 ? __fdiv_rn((float)s_ab, (float)s_aa) : 0.0f;
       scale = fminf(fmaxf(scale, -16.0f), 16.0f);
-      const float centre = (float)(g[(r + 1) * 10 + c + 1] * 16 - sa);
+      const float centre = (float)(wa[1][1] * 16 - sa);
       const float av = __fmul_rn(
           __fadd_rn(__fmul_rn(centre, scale), (float)sb), 0.0625f);
       fb[r * 8 + c] = fminf(__fsub_rn(fmaxf(av, 0.0f), 128.0f), 128.0f);
@@ -537,8 +640,8 @@ __device__ __forceinline__ void fdct_pass(const float (&x)[8],
 // predicted block (columns, then rows times 0.125 as its own rounded step),
 // roundf, the C cast, then the clamp to the interval around the INCOMING
 // coefficient.
-__device__ __forceinline__ void fdct_clamp(const float (&fb)[64],
-                                           int (&c)[64],
+template <class C>
+__device__ __forceinline__ void fdct_clamp(const float (&fb)[64], C& c,
                                            const int* __restrict__ div,
                                            const int* __restrict__ x1,
                                            const int* __restrict__ qshr) {
@@ -568,45 +671,185 @@ __device__ __forceinline__ void fdct_clamp(const float (&fb)[64],
 }
 
 // ---------------------------------------------------------------------------
-// B3 (PRE = kJoint) and B4 (PRE = kLowQuality): one fused pass = the 10x10
-// halo from the previous pass's pixels + the JOINT_YUV or LOW_QUALITY
-// preamble + fdct_clamp, then (NT > 0) B2's sweep with the halo's edge
-// lines as borders, the rebalance and the emitted pixels.
-// Replaces jpegqs_tpu/ops/pallas_solver.py solve_fused_pix (_solve_tiled
+// B3 and B4: one fused pass = the 10x10 halo from the previous pass's pixels
+// + the JOINT_YUV (B3) or LOW_QUALITY (B4) preamble + fdct_clamp, then (B3
+// at NT > 0) the sweep with the halo's edge lines as borders, the rebalance
+// and the emitted pixels.
+// Replace jpegqs_tpu/ops/pallas_solver.py solve_fused_pix (_solve_tiled
 // aux_mode="pix" with preamble "joint" / "lq": _halo_from_pix, _joint_tile
 // or _lq_range_tile + _lq_shrink_tile, _fdct_clamp_tile, the sweep unless
 // LOW_QUALITY, _rebalance_tile, emit_pix).
-// Bound on this card: with the sweep (JOINT at q5/q6, NT 144/242) fp32
-// operations, as B2 (13,308 non-zero-weight terms x 9 ops per block at
-// NT 242); without it (JOINT at q1/q2, LQ at q0-q2) bytes -- ~1.0-1.4 KB
-// per block (coefficients in and out, the 9-block pixel window, image2,
-// pixels out) against ~5-7k fp32 ops.
-// Design: one thread per block, as B2.  The halos (2 x 100 ints) and the
-// predicted block do not fit in registers beside the coefficients, so
-// some of them spill to local memory (L1-cached; the ptxas report says how
-// much); they are dead once fdct_clamp has run, before the sweep's v[96]
-// is live.  image2 [100, B] is read once per block.  pix_out never aliases
-// pix_in.
 // ---------------------------------------------------------------------------
-constexpr int kJoint = 0;
-constexpr int kLowQuality = 1;
-
 struct FusedArgs {
   const int* coef_in;
   const int* pix_in;
-  const int* image2;  // [100, B] downsampled-luma halos (kJoint only)
+  const int* image2;  // [100, B] downsampled-luma halos (B3 only)
   int* coef_out;
   int* pix_out;       // may be NULL
   const int* div;
   const int* x1;
   const int* qshr;
-  const float* tab;   // [64, NT] (NT > 0 only)
-  int nblocks, hb, wb, do_rebalance;
+  const float* tab;   // [64, pitch] (B3 with NT > 0 only)
+  int pitch, nblocks, hb, wb, do_rebalance;
 };
 
-template <int PRE, int NT>
+// Slot of element k (row-major) of a block's 10x10 halo as B3 stages it in
+// shared memory: first the four edge lines the sweep takes as its borders
+// (top, bottom, left, right, eight each: the order of v[64..95]), then the
+// four corners, then the 8x8 interior.  k is a compile-time index wherever
+// the halo is read or written, so the map costs nothing.
+__device__ constexpr int halo_slot(int k) {
+  const int r = k / 10, c = k % 10;
+  if (r == 0 && c >= 1 && c <= 8) return c - 1;
+  if (r == 9 && c >= 1 && c <= 8) return 7 + c;
+  if (c == 0 && r >= 1 && r <= 8) return 15 + r;
+  if (c == 9 && r >= 1 && r <= 8) return 23 + r;
+  if (r == 0) return c == 0 ? 32 : 33;
+  if (r == 9) return c == 0 ? 34 : 35;
+  return 36 + (r - 1) * 8 + (c - 1);
+}
+
+// B3's shared memory per CTA: kJointWords 32-bit words a thread, word w of
+// thread t at w * kThreads + t, so the 32 threads of a warp touch 32
+// neighbouring words and no two of them a bank.  A word holds two 16-bit
+// slots, slot s in word s / 2 (the low half when s is even): the staged
+// halo in slots [0, 100), image2 in slots [100, 200).  After the preamble
+// only the halo's edge lines (slots 0..31, words 0..15) are read again, so
+// the coefficients, int32, overlay words [kJointCoefWord, kJointWords).
+// Both views put a thread's data in its own words only: no thread reads or
+// writes another's bytes, and no barrier is needed.
+constexpr int kJointWords = 100;
+constexpr int kJointCoefWord = kJointWords - 64;
+constexpr int kJointSmem = kJointWords * kThreads * 4;  // 51,200 bytes
+
+// Thread t's slot s, as an index of 16-bit values, and its coefficient k,
+// as an index of 32-bit words, in B3's shared memory.
+__host__ __device__ constexpr int joint_slot(int s, int t) {
+  return 2 * ((s >> 1) * kThreads + t) + (s & 1);
+}
+__host__ __device__ constexpr int joint_coef(int k, int t) {
+  return (kJointCoefWord + k) * kThreads + t;
+}
+
+// The layout, checked for every thread, slot and coefficient when this
+// file compiles: each view gives a thread only words w with
+// w % kThreads == t, inside the CTA's kJointSmem bytes; no coefficient
+// shares a word with the halo's edge lines; and an index is the thread's
+// base plus a part that does not depend on the thread, which is how
+// SlotCol and SmemCol compute it.
+constexpr bool joint_layout_ok() {
+  for (int t = 0; t < kThreads; ++t) {
+    for (int s = 0; s < 200; ++s) {
+      const int w = joint_slot(s, t) / 2;
+      if (w % kThreads != t || w >= kJointWords * kThreads ||
+          joint_slot(s, t) != joint_slot(0, t) + joint_slot(s, 0))
+        return false;
+    }
+    for (int k = 0; k < 64; ++k) {
+      const int w = joint_coef(k, t);
+      if (w % kThreads != t || w >= kJointWords * kThreads ||
+          w <= joint_slot(31, t) / 2 || w != joint_coef(0, t) + k * kThreads)
+        return false;
+    }
+  }
+  return true;
+}
+static_assert(joint_layout_ok(),
+              "B3's shared-memory views must keep each thread in its words");
+
+// A thread's 16-bit slots of B3's shared memory, slot s at p[joint_slot(s,
+// 0)] with p the CTA's shared memory plus joint_slot(0, t).  volatile: each
+// read is a load where it stands, so the 3x3 windows of joint_fblock hold
+// only their own values in registers.
+struct SlotCol {
+  volatile unsigned short* p;
+  __device__ __forceinline__ volatile unsigned short& operator[](int s) const {
+    return p[joint_slot(s, 0)];
+  }
+};
+
+// A thread's staged halo, element k (row-major) in slot halo_slot(k).
+struct HaloSmem {
+  SlotCol s;
+  __device__ __forceinline__ volatile unsigned short& operator[](int k) const {
+    return s[halo_slot(k)];
+  }
+};
+
+// A thread's staged image2, element k in slot 100 + k.
+struct Image2Smem {
+  SlotCol s;
+  __device__ __forceinline__ volatile unsigned short& operator[](int k) const {
+    return s[100 + k];
+  }
+};
+
+// B3 (JOINT_YUV preamble; NT 0: no sweep, q1/q2 chroma; NT 144/242: q5/q6).
+// Bound on this card: with the sweep fp32 operations, as B2 (13,308
+// non-zero-weight terms x 9 ops per block at NT 242) plus the preamble's
+// 1,664; without it bytes -- ~1.4 KB per block (coefficients in and out,
+// the 9-block pixel window, image2, pixels out) against ~1.7k fp32 ops.
+// Design: one thread per block, 128 threads a CTA, at most 128 registers and
+// 51,200 B of shared memory, so 4 CTAs (16 warps) share an SM and the 12 MP
+// 4:2:0 photo's 47,000-block chroma plane (368 CTAs) runs in one wave of
+// 528 CTA slots.  The 10x10 pixel halo and the image2 halo are staged in
+// shared memory as 16-bit values, each thread in its own words (no bank
+// conflicts, no barrier), and not held in registers: the preamble holds
+// only the predicted block (64 registers) and two sliding 3x3 windows.
+// joint_fblock reads its 3x3 windows from there; the coefficients then
+// overlay the dead halo interior and image2, and the sweep is B2's, its
+// borders read from the staged halo's edge lines.  pix_out never aliases
+// pix_in.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 4)
+solve_joint_pix_kernel(const FusedArgs a) {
+  extern __shared__ int joint_smem[];
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= a.nblocks) return;
+  const size_t S = (size_t)a.nblocks;
+  const int* __restrict__ div = a.div;
+  const int* __restrict__ x1 = a.x1;
+  const int* __restrict__ qshr = a.qshr;
+
+  const SlotCol col{reinterpret_cast<volatile unsigned short*>(joint_smem) +
+                    joint_slot(0, threadIdx.x)};
+  const HaloSmem h{col};
+  const Image2Smem g{col};
+  // edges from the block's position inside its own image, as B2
+  const int loc = b % (a.hb * a.wb);
+  const int by = loc / a.wb, bx = loc % a.wb;
+  // image2 first: in this order ptxas fits NT 0 in 128 registers
+  // without a spill (PERF.md, Findings)
+#pragma unroll
+  for (int k = 0; k < 100; ++k) g[k] = a.image2[k * S + b];
+  load_halo(a.pix_in, S, b, a.wb, by == 0, by == a.hb - 1, bx == 0,
+            bx == a.wb - 1, h);
+
+  float fb[64];
+  joint_fblock(h, g, fb);
+  smem_retype();
+  const SmemCol<int> c{joint_smem + joint_coef(0, threadIdx.x)};
+#pragma unroll
+  for (int k = 0; k < 64; ++k) c[k] = a.coef_in[k * S + b];
+  fdct_clamp(fb, c, div, x1, qshr);
+
+  if constexpr (NT > 0) {
+    float v[96];
+    halo_borders(h, v);
+    sweep<NT>(c, v, div, x1, qshr, a.tab, a.pitch);
+  }
+  if (a.do_rebalance) rebalance(c, div, x1, qshr);
+  emit_block(c, a.coef_out, a.pix_out, S, b);
+}
+
+// B4 (LOW_QUALITY preamble; never sweeps).
+// Bound on this card: bytes -- ~1.0 KB per block (coefficients in and out,
+// the 9-block pixel window, pixels out) against ~6.9k fp32 ops.
+// Design: one thread per block; the halo and the predicted block are held
+// in registers beside the coefficients, and some of them spill to local
+// memory (L1-cached; the ptxas report says how much).
 __global__ void __launch_bounds__(kThreads)
-solve_fused_pix_kernel(const FusedArgs a) {
+solve_lq_pix_kernel(const FusedArgs a) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.nblocks) return;
   const size_t S = (size_t)a.nblocks;
@@ -617,36 +860,14 @@ solve_fused_pix_kernel(const FusedArgs a) {
   int c[64];
 #pragma unroll
   for (int k = 0; k < 64; ++k) c[k] = a.coef_in[k * S + b];
-  // edges from the block's position inside its own image, as B2
   int h[100];
   const int loc = b % (a.hb * a.wb);
   const int by = loc / a.wb, bx = loc % a.wb;
   load_halo(a.pix_in, S, b, a.wb, by == 0, by == a.hb - 1, bx == 0,
             bx == a.wb - 1, h);
-
   float fb[64];
-  if constexpr (PRE == kJoint) {
-    int g[100];
-#pragma unroll
-    for (int k = 0; k < 100; ++k) g[k] = a.image2[k * S + b];
-    joint_fblock(h, g, fb);
-  } else {
-    lq_fblock(h, lq_range(c, div), fb);
-  }
+  lq_fblock(h, lq_range(c, div), fb);
   fdct_clamp(fb, c, div, x1, qshr);
-
-  if constexpr (NT > 0) {
-    // the solver borders are rows/cols of the very halo
-    int v[96];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      v[64 + q] = h[1 + q];
-      v[72 + q] = h[91 + q];
-      v[80 + q] = h[(q + 1) * 10];
-      v[88 + q] = h[(q + 1) * 10 + 9];
-    }
-    sweep<NT>(c, v, div, x1, qshr, a.tab);
-  }
   if (a.do_rebalance) rebalance(c, div, x1, qshr);
   emit_block(c, a.coef_out, a.pix_out, S, b);
 }
@@ -671,9 +892,12 @@ struct GivenArgs {
   const int* div;
   const int* x1;
   const int* qshr;
-  const float* tab;   // [64, NT] (NT > 0 only)
-  int n, ld_coef, ld_nbhd, ld_image2, do_rebalance;
+  const float* tab;   // [64, pitch] (NT > 0 only)
+  int pitch, n, ld_coef, ld_nbhd, ld_image2, do_rebalance;
 };
+
+constexpr int kJoint = 0;
+constexpr int kLowQuality = 1;
 
 // B5: the k=63..1 sweep + rebalance (+ pixels) on given border lines.
 // Replaces jpegqs_tpu/ops/pallas_solver.py solve_rebalance (_solve_tiled
@@ -682,7 +906,8 @@ struct GivenArgs {
 // Bound on this card: fp32 operations, as B2 -- 9 per term of non-zero table
 // weight per block (7,648 terms at NT 144, 13,308 at NT 242) against
 // (64 + 32 + 64) x 4 B of traffic per block.
-// Design: B2 with its border gather replaced by 32 planar loads; the sweep,
+// Design: one thread per block with its coefficients in a local array (not
+// B2's shared memory); the border lines are 32 planar loads; the sweep,
 // rebalance and emit are B2's device functions.
 template <int NT>
 __global__ void __launch_bounds__(kThreads)
@@ -696,11 +921,11 @@ solve_rebalance_kernel(const GivenArgs a) {
   int c[64];
 #pragma unroll
   for (int k = 0; k < 64; ++k) c[k] = a.coef_in[(size_t)k * a.ld_coef + b];
-  int v[96];
+  float v[96];
 #pragma unroll
   for (int j = 0; j < 32; ++j) v[64 + j] = a.nbhd[(size_t)j * a.ld_nbhd + b];
 
-  sweep<NT>(c, v, div, x1, qshr, a.tab);
+  sweep<NT>(c, v, div, x1, qshr, a.tab, a.pitch);
   if (a.do_rebalance) rebalance(c, div, x1, qshr);
   emit_block(c, a.coef_out, a.pix_out, (size_t)a.n, b);
 }
@@ -713,8 +938,9 @@ solve_rebalance_kernel(const GivenArgs a) {
 // Bound on this card: with the sweep (JOINT at q5/q6) fp32 operations, as
 // B3; without it (JOINT at q1/q2, LQ at q0-q2) bytes -- (64 + 100 + 100 +
 // 64) x 4 B per block under JOINT, 100 ints fewer under LQ.
-// Design: B3/B4 with the halo read from memory in place of load_halo; the
-// preambles, fdct_clamp, sweep, rebalance and emit are theirs.
+// Design: one thread per block, the halos and coefficients in registers and
+// local arrays (not B3's shared-memory staging); the preambles,
+// fdct_clamp, sweep, rebalance and emit are B3/B4's device functions.
 template <int PRE, int NT>
 __global__ void __launch_bounds__(kThreads)
 solve_fused_kernel(const GivenArgs a) {
@@ -743,15 +969,9 @@ solve_fused_kernel(const GivenArgs a) {
   fdct_clamp(fb, c, div, x1, qshr);
 
   if constexpr (NT > 0) {
-    int v[96];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      v[64 + q] = h[1 + q];
-      v[72 + q] = h[91 + q];
-      v[80 + q] = h[(q + 1) * 10];
-      v[88 + q] = h[(q + 1) * 10 + 9];
-    }
-    sweep<NT>(c, v, div, x1, qshr, a.tab);
+    float v[96];
+    halo_borders(h, v);
+    sweep<NT>(c, v, div, x1, qshr, a.tab, a.pitch);
   }
   if (a.do_rebalance) rebalance(c, div, x1, qshr);
   emit_block(c, a.coef_out, a.pix_out, (size_t)a.n, b);
@@ -778,8 +998,9 @@ solve_fused_kernel(const GivenArgs a) {
 // whole-size outputs [64, S] at their own index, so the passes of a split
 // fill one output.  An output never aliases an input; pix_out may be NULL.
 // Bound on this card: as B2 (kBorders), B3 (kJoint) or B4 (kLowQuality).
-// Design: those kernels' device functions with the edge flags from the
-// descriptor; one thread per block of the range.
+// Design: the device functions of B2-B4 with the edge flags from the
+// descriptor; one thread per block of the range, its halos and
+// coefficients in registers and local arrays (not B2/B3's shared memory).
 // ---------------------------------------------------------------------------
 constexpr int kBorders = 2;
 
@@ -792,8 +1013,8 @@ struct RangeArgs {
   const int* div;
   const int* x1;
   const int* qshr;
-  const float* tab;   // [64, NT] (NT > 0 only)
-  int nblocks, wb, b0, b1, top_row, bot_row, do_rebalance;
+  const float* tab;   // [64, pitch] (NT > 0 only)
+  int pitch, nblocks, wb, b0, b1, top_row, bot_row, do_rebalance;
 };
 
 template <int PRE, int NT>
@@ -814,9 +1035,9 @@ solve_range_pix_kernel(const RangeArgs a) {
   for (int k = 0; k < 64; ++k) c[k] = a.coef_in[k * S + b];
 
   if constexpr (PRE == kBorders) {
-    int v[96];
+    float v[96];
     load_borders(a.pix_in, S, b, a.wb, t, d, l, r, v);
-    sweep<NT>(c, v, div, x1, qshr, a.tab);
+    sweep<NT>(c, v, div, x1, qshr, a.tab, a.pitch);
   } else {
     int h[100];
     load_halo(a.pix_in, S, b, a.wb, t, d, l, r, h);
@@ -831,15 +1052,9 @@ solve_range_pix_kernel(const RangeArgs a) {
     }
     fdct_clamp(fb, c, div, x1, qshr);
     if constexpr (NT > 0) {
-      int v[96];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        v[64 + q] = h[1 + q];
-        v[72 + q] = h[91 + q];
-        v[80 + q] = h[(q + 1) * 10];
-        v[88 + q] = h[(q + 1) * 10 + 9];
-      }
-      sweep<NT>(c, v, div, x1, qshr, a.tab);
+      float v[96];
+      halo_borders(h, v);
+      sweep<NT>(c, v, div, x1, qshr, a.tab, a.pitch);
     }
   }
   if (a.do_rebalance) rebalance(c, div, x1, qshr);
@@ -909,6 +1124,38 @@ __global__ void divide_kernel(const float* a, const float* b, float* out,
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+// A table of NT used columns (0: no sweep) in rows of pitch floats: a
+// multiple of four, so every row starts 16-byte aligned.
+inline bool pitch_ok(int nt, int pitch) {
+  return nt == 0 || (pitch >= nt && pitch % 4 == 0);
+}
+
+// B3 takes kJointSmem bytes of dynamic shared memory, above the 48 KB a
+// launch gets without asking: granted once per device and instantiation
+// (a bit per device; granting it twice is harmless).
+template <int NT>
+cudaError_t allow_joint_smem() {
+  static std::atomic<unsigned long long> granted{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (granted.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(solve_joint_pix_kernel<NT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kJointSmem);
+  if (e == cudaSuccess) granted.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
+
+template <int NT>
+cudaError_t launch_joint(const FusedArgs& a, dim3 grid, cudaStream_t s) {
+  const cudaError_t e = allow_joint_smem<NT>();
+  if (e != cudaSuccess) return e;
+  solve_joint_pix_kernel<NT><<<grid, kThreads, kJointSmem, s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -920,68 +1167,73 @@ int jq_idct_pix(const int* coef, int* pix, int nblocks, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// pix_out may be NULL (the last pass emits no pixels).  nt is 144 or 242.
+// pix_out may be NULL (the last pass emits no pixels).  nt is 144 or 242,
+// tab f32[64, pitch].
 int jq_solve_rebalance_pix(const int* coef_in, const int* pix_in,
                            int* coef_out, int* pix_out, const int* div,
                            const int* x1, const int* qshr, const float* tab,
-                           int nt, int nblocks, int hb, int wb,
+                           int nt, int pitch, int nblocks, int hb, int wb,
                            int do_rebalance, void* stream) {
-  if (nt != 144 && nt != 242) return (int)cudaErrorInvalidValue;
+  if ((nt != 144 && nt != 242) || !pitch_ok(nt, pitch))
+    return (int)cudaErrorInvalidValue;
   if (nblocks > 0) {
     const dim3 grid(blocks_for(nblocks)), block(kThreads);
     cudaStream_t s = (cudaStream_t)stream;
     if (nt == 144)
       solve_rebalance_pix_kernel<144><<<grid, block, 0, s>>>(
-          coef_in, pix_in, coef_out, pix_out, div, x1, qshr, tab, nblocks,
-          hb, wb, do_rebalance);
+          coef_in, pix_in, coef_out, pix_out, div, x1, qshr, tab, pitch,
+          nblocks, hb, wb, do_rebalance);
     else
       solve_rebalance_pix_kernel<242><<<grid, block, 0, s>>>(
-          coef_in, pix_in, coef_out, pix_out, div, x1, qshr, tab, nblocks,
-          hb, wb, do_rebalance);
+          coef_in, pix_in, coef_out, pix_out, div, x1, qshr, tab, pitch,
+          nblocks, hb, wb, do_rebalance);
   }
   return (int)cudaGetLastError();
 }
 
 // B3 when image2 is given (nt 0: no sweep under LOW_QUALITY, or 144/242),
 // B4 when it is NULL (nt must be 0: the LOW_QUALITY preamble never sweeps).
-// pix_out may be NULL.
+// tab f32[64, pitch] when nt > 0.  pix_out may be NULL.
 int jq_solve_fused_pix(const int* coef_in, const int* pix_in,
                        const int* image2, int* coef_out, int* pix_out,
                        const int* div, const int* x1, const int* qshr,
-                       const float* tab, int nt, int nblocks, int hb, int wb,
-                       int do_rebalance, void* stream) {
-  if (nt != 0 && nt != 144 && nt != 242) return (int)cudaErrorInvalidValue;
+                       const float* tab, int nt, int pitch, int nblocks,
+                       int hb, int wb, int do_rebalance, void* stream) {
+  if ((nt != 0 && nt != 144 && nt != 242) || !pitch_ok(nt, pitch))
+    return (int)cudaErrorInvalidValue;
   if (image2 == nullptr && nt != 0) return (int)cudaErrorInvalidValue;
   if (nblocks > 0) {
-    const FusedArgs a{coef_in, pix_in,  image2, coef_out, pix_out,
-                      div,     x1,      qshr,   tab,      nblocks,
-                      hb,      wb,      do_rebalance};
-    const dim3 grid(blocks_for(nblocks)), block(kThreads);
+    const FusedArgs a{coef_in, pix_in, image2,  coef_out, pix_out,
+                      div,     x1,     qshr,    tab,      pitch,
+                      nblocks, hb,     wb,      do_rebalance};
+    const dim3 grid(blocks_for(nblocks));
     cudaStream_t s = (cudaStream_t)stream;
     if (image2 == nullptr)
-      solve_fused_pix_kernel<kLowQuality, 0><<<grid, block, 0, s>>>(a);
+      solve_lq_pix_kernel<<<grid, kThreads, 0, s>>>(a);
     else if (nt == 0)
-      solve_fused_pix_kernel<kJoint, 0><<<grid, block, 0, s>>>(a);
+      return (int)launch_joint<0>(a, grid, s);
     else if (nt == 144)
-      solve_fused_pix_kernel<kJoint, 144><<<grid, block, 0, s>>>(a);
+      return (int)launch_joint<144>(a, grid, s);
     else
-      solve_fused_pix_kernel<kJoint, 242><<<grid, block, 0, s>>>(a);
+      return (int)launch_joint<242>(a, grid, s);
   }
   return (int)cudaGetLastError();
 }
 
-// B5: nt is 144 or 242.  ld_* are the row strides of the inputs (elements);
-// the outputs are contiguous [64, n].  pix_out may be NULL.
+// B5: nt is 144 or 242, tab f32[64, pitch].  ld_* are the row strides of
+// the inputs (elements); the outputs are contiguous [64, n].  pix_out may
+// be NULL.
 int jq_solve_rebalance(const int* coef_in, const int* borders, int* coef_out,
                        int* pix_out, const int* div, const int* x1,
-                       const int* qshr, const float* tab, int nt, int n,
-                       int ld_coef, int ld_borders, int do_rebalance,
+                       const int* qshr, const float* tab, int nt, int pitch,
+                       int n, int ld_coef, int ld_borders, int do_rebalance,
                        void* stream) {
-  if (nt != 144 && nt != 242) return (int)cudaErrorInvalidValue;
+  if ((nt != 144 && nt != 242) || !pitch_ok(nt, pitch))
+    return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const GivenArgs a{coef_in, borders, nullptr, coef_out, pix_out,
-                      div,     x1,      qshr,    tab,      n,
-                      ld_coef, ld_borders, 0,    do_rebalance};
+    const GivenArgs a{coef_in, borders,    nullptr, coef_out, pix_out,
+                      div,     x1,         qshr,    tab,      pitch,
+                      n,       ld_coef,    ld_borders, 0,     do_rebalance};
     const dim3 grid(blocks_for(n)), block(kThreads);
     cudaStream_t s = (cudaStream_t)stream;
     if (nt == 144)
@@ -996,15 +1248,16 @@ int jq_solve_rebalance(const int* coef_in, const int* borders, int* coef_out,
 // with the LOW_QUALITY one when it is NULL (nt must be 0).  As B5 otherwise.
 int jq_solve_fused(const int* coef_in, const int* halo, const int* image2,
                    int* coef_out, int* pix_out, const int* div, const int* x1,
-                   const int* qshr, const float* tab, int nt, int n,
+                   const int* qshr, const float* tab, int nt, int pitch, int n,
                    int ld_coef, int ld_halo, int ld_image2, int do_rebalance,
                    void* stream) {
-  if (nt != 0 && nt != 144 && nt != 242) return (int)cudaErrorInvalidValue;
+  if ((nt != 0 && nt != 144 && nt != 242) || !pitch_ok(nt, pitch))
+    return (int)cudaErrorInvalidValue;
   if (image2 == nullptr && nt != 0) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const GivenArgs a{coef_in, halo,    image2,    coef_out, pix_out,
-                      div,     x1,      qshr,      tab,      n,
-                      ld_coef, ld_halo, ld_image2, do_rebalance};
+                      div,     x1,      qshr,      tab,      pitch,
+                      n,       ld_coef, ld_halo,   ld_image2, do_rebalance};
     const dim3 grid(blocks_for(n)), block(kThreads);
     cudaStream_t s = (cudaStream_t)stream;
     if (image2 == nullptr)
@@ -1020,25 +1273,27 @@ int jq_solve_fused(const int* coef_in, const int* halo, const int* image2,
 }
 
 // B7: pre is kBorders (nt 144 or 242), kJoint (image2 given; nt 0, 144 or
-// 242) or kLowQuality (nt 0).  Blocks [b0, b1) of the nblocks-block planes,
-// wb blocks a row; top_row / bot_row the rows whose top / bottom edge
-// replicates (-1: none).  pix_out may be NULL.
+// 242) or kLowQuality (nt 0); tab f32[64, pitch] when nt > 0.  Blocks
+// [b0, b1) of the nblocks-block planes, wb blocks a row; top_row / bot_row
+// the rows whose top / bottom edge replicates (-1: none).  pix_out may be
+// NULL.
 int jq_solve_range_pix(const int* coef_in, const int* pix_in,
                        const int* image2, int* coef_out, int* pix_out,
                        const int* div, const int* x1, const int* qshr,
-                       const float* tab, int pre, int nt, int nblocks, int wb,
-                       int b0, int b1, int top_row, int bot_row,
-                       int do_rebalance, void* stream) {
+                       const float* tab, int pre, int nt, int pitch,
+                       int nblocks, int wb, int b0, int b1, int top_row,
+                       int bot_row, int do_rebalance, void* stream) {
   const bool swept = nt == 144 || nt == 242;
   const bool ok = pre == kBorders  ? swept
                   : pre == kJoint  ? image2 != nullptr && (nt == 0 || swept)
                                    : pre == kLowQuality && nt == 0;
-  if (!ok || wb < 1 || b0 < 0 || b1 > nblocks)
+  if (!ok || !pitch_ok(nt, pitch) || wb < 1 || b0 < 0 || b1 > nblocks)
     return (int)cudaErrorInvalidValue;
   if (b1 > b0) {
-    const RangeArgs a{coef_in, pix_in, image2,  coef_out, pix_out, div,
-                      x1,      qshr,   tab,     nblocks,  wb,      b0,
-                      b1,      top_row, bot_row, do_rebalance};
+    const RangeArgs a{coef_in, pix_in,  image2,  coef_out, pix_out,
+                      div,     x1,      qshr,    tab,      pitch,
+                      nblocks, wb,      b0,      b1,       top_row,
+                      bot_row, do_rebalance};
     const dim3 grid(blocks_for(b1 - b0)), block(kThreads);
     cudaStream_t s = (cudaStream_t)stream;
     if (pre == kBorders && nt == 144)

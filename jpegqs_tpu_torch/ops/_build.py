@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -35,15 +36,15 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "jq_idct_pix": [_P, _P, _I, _P],
     "jq_solve_rebalance_pix": [_P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _P],
+                               _I, _I, _I, _I, _I, _I, _P],
     "jq_solve_fused_pix": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _P],
     "jq_solve_rebalance": [_P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _P],
     "jq_solve_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _P],
+                       _I, _I, _I, _I, _I, _I, _I, _P],
     "jq_solve_range_pix": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "jq_peak": [_P, _P, _I, _I, _I, _P],
     "jq_canary_muladd": [_P, _P, _P, _P, _I, _P],
     "jq_canary_fold": [_P, _P, _I, _I, _P],
@@ -100,6 +101,36 @@ def build() -> str:
         f.write(r.stderr)
     os.replace(tmp, path)          # atomic: concurrent builders agree
     return path
+
+
+def ptxas_report(log_text: str) -> list:
+    """nvcc's ``-Xptxas -v`` report per kernel instantiation, in the order
+    compiled: dicts with ``name`` (``kernel<args>``, demangled far enough
+    to tell the instantiations apart), ``registers``, ``spill_stores``,
+    ``spill_loads`` (bytes) and ``smem`` (static shared memory, bytes)."""
+    rows = []
+    for entry in log_text.split("Compiling entry function '")[1:]:
+        mangled = entry.split("'")[0]
+        name, pos = mangled, mangled.find("N") + 1
+        while (m := re.match(r"\d+", mangled[pos:])):  # <length><ident>
+            pos += m.end()
+            ident = mangled[pos:pos + int(m.group())]
+            pos += len(ident)
+            if ident.endswith("_kernel"):
+                args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
+                name = ident + ("<" + ",".join(re.findall(
+                    r"Li(\d+)E", args.group(1))) + ">" if args else "")
+                break
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        smem = re.search(r"(\d+) bytes smem", entry)
+        rows.append({"name": name,
+                     "registers": int(regs.group(1)) if regs else -1,
+                     "spill_stores": int(spill.group(1)) if spill else -1,
+                     "spill_loads": int(spill.group(2)) if spill else -1,
+                     "smem": int(smem.group(1)) if smem else 0})
+    return rows
 
 
 def load() -> ctypes.CDLL:

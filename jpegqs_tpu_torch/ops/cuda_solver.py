@@ -74,6 +74,34 @@ def solver_tables(flags: int, device) -> torch.Tensor:
     return tab
 
 
+def kernel_tables(flags: int, device) -> torch.Tensor:
+    """The kernels' solver tables on ``device`` (cached): f32[64, pitch],
+    ``solver_tables`` with its NT columns padded with zeros to a multiple
+    of four (pitch 144 or 244), so that a kernel reads a row as float4;
+    no kernel folds the pad."""
+    tab = solver_tables(flags, device)
+    nt = tab.shape[1]
+    if nt % 4 == 0:
+        return tab
+    key = ("padded", nt, str(torch.device(device)))
+    padded = _TAB_CACHE.get(key)
+    if padded is None:
+        padded = torch.zeros((64, nt + (-nt) % 4), dtype=tab.dtype,
+                             device=tab.device)
+        padded[:, :nt] = tab
+        _TAB_CACHE[key] = padded
+    return padded
+
+
+def _kernel_tab(flags, sweep, device):
+    """The table arguments of a launch: (pointer, NT, pitch) of
+    ``kernel_tables``, or (None, 0, 0) for a pass without the sweep."""
+    if not sweep:
+        return None, 0, 0
+    tab = kernel_tables(flags, device)
+    return tab.data_ptr(), nt_for(flags), tab.shape[1]
+
+
 def _is_cpu(*ts) -> bool:
     kinds = {t.device.type for t in ts}
     if kinds == {"cpu"}:
@@ -163,8 +191,9 @@ def solve_rebalance_pix(coef, pix, div, x1, qshr, flags, do_rebalance, hb,
     with torch.cuda.device(coef.device):
         err = lib.jq_solve_rebalance_pix(
             coef.data_ptr(), pix.data_ptr(), out.data_ptr(), _ptr(pix_out),
-            div.data_ptr(), x1.data_ptr(), qshr.data_ptr(), tab.data_ptr(),
-            tab.shape[1], B, hb, wb, int(bool(do_rebalance)),
+            div.data_ptr(), x1.data_ptr(), qshr.data_ptr(),
+            *_kernel_tab(flags, True, coef.device), B, hb, wb,
+            int(bool(do_rebalance)),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "solve_rebalance_pix")
     LAUNCHES["solve_rebalance_pix"] += 1
@@ -208,7 +237,7 @@ def solve_fused_pix(coef, pix, image2, div, x1, qshr, flags, do_rebalance,
         err = lib.jq_solve_fused_pix(
             coef.data_ptr(), pix.data_ptr(), _ptr(image2), out.data_ptr(),
             _ptr(pix_out), div.data_ptr(), x1.data_ptr(), qshr.data_ptr(),
-            _ptr(tab), tab.shape[1] if sweep else 0, B, hb, wb,
+            *_kernel_tab(flags, sweep, coef.device), B, hb, wb,
             int(bool(do_rebalance)), torch.cuda.current_stream().cuda_stream)
     name = ("solve_fused_pix_joint" if image2 is not None
             else "solve_fused_pix_lq")
@@ -240,7 +269,7 @@ def solve_rebalance(coef, borders, div, x1, qshr, flags, do_rebalance,
         err = lib.jq_solve_rebalance(
             coef.data_ptr(), borders.data_ptr(), out.data_ptr(),
             _ptr(pix_out), div.data_ptr(), x1.data_ptr(), qshr.data_ptr(),
-            tab.data_ptr(), tab.shape[1], n, ld_coef, ld_borders,
+            *_kernel_tab(flags, True, coef.device), n, ld_coef, ld_borders,
             int(bool(do_rebalance)), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "solve_rebalance")
     LAUNCHES["solve_rebalance"] += 1
@@ -278,7 +307,7 @@ def solve_fused(coef, halo, image2, div, x1, qshr, flags, do_rebalance,
         err = lib.jq_solve_fused(
             coef.data_ptr(), halo.data_ptr(), _ptr(image2), out.data_ptr(),
             _ptr(pix_out), div.data_ptr(), x1.data_ptr(), qshr.data_ptr(),
-            _ptr(tab), tab.shape[1] if sweep else 0, n, ld_coef, ld_halo,
+            *_kernel_tab(flags, sweep, coef.device), n, ld_coef, ld_halo,
             ld_image2, int(bool(do_rebalance)),
             torch.cuda.current_stream().cuda_stream)
     name = "solve_fused_joint" if image2 is not None else "solve_fused_lq"
@@ -351,11 +380,12 @@ def solve_range_pix(coef, pix, image2, div, x1, qshr, flags, do_rebalance,
         _check(image2, torch.int32, (100, S), "image2")
     _check_tables(div, x1, qshr)
     lib = _build.load()
+    ktab, nt, pitch = _kernel_tab(flags, sweep, coef.device)
     with torch.cuda.device(coef.device):
         err = lib.jq_solve_range_pix(
             coef.data_ptr(), pix.data_ptr(), _ptr(image2), coef_out.data_ptr(),
             _ptr(pix_out), div.data_ptr(), x1.data_ptr(), qshr.data_ptr(),
-            _ptr(tab), pre, tab.shape[1] if sweep else 0, S, wb, b0, b1,
+            ktab, pre, nt, pitch, S, wb, b0, b1,
             edges[0], edges[1], int(bool(do_rebalance)),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)

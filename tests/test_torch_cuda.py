@@ -38,8 +38,11 @@ def _inputs(hb, wb, seed, device):
     return t(coef), t(pix), [t(a) for a in make_quant_tables(qtbl)]
 
 
+# 37 x 53 = 1,961 blocks: 15 full CTAs of 128 threads and a partial one,
+# CTAs that span block rows and hold image edges and corners
 @pytest.mark.cuda
-@pytest.mark.parametrize("hb,wb", [(1, 13), (9, 1), (1, 1), (9, 13)])
+@pytest.mark.parametrize("hb,wb", [(1, 13), (9, 1), (1, 1), (9, 13),
+                                   (37, 53)])
 @pytest.mark.parametrize("flags", [0, DIAGONALS])
 def test_kernels_vs_plain_on_card(cuda, hb, wb, flags):
     coef, pix, tabs = _inputs(hb, wb, hb * 100 + wb, cuda)
@@ -55,7 +58,7 @@ def test_kernels_vs_plain_on_card(cuda, hb, wb, flags):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hb,wb,n", [(1, 13, 1), (9, 1, 1), (1, 1, 1),
-                                     (9, 13, 1), (4, 5, 2)])
+                                     (9, 13, 1), (4, 5, 2), (37, 53, 1)])
 @pytest.mark.parametrize("flags,joint", [
     (JOINT_YUV | DIAGONALS, True), (JOINT_YUV, True),
     (JOINT_YUV | LOW_QUALITY | DIAGONALS, True),
