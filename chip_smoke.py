@@ -11,7 +11,7 @@ on any mismatch:
 1. prints the card (nvidia-smi name, power limit) and the versions;
 2. builds the kernels and prints the build time and the ptxas report of
    every kernel instantiation (registers, spills, static shared memory),
-   B2's and B3's marked with the CTAs of 128 threads an SM holds;
+   B2's, B3's and B4's marked with the CTAs of 128 threads an SM holds;
 3. runs the arithmetic canaries: no mul+add contraction, an exact fp32
    left fold, IEEE division;
 4. T3, the fp32 peak probe: bit-identical to its plain version on a small
@@ -21,10 +21,12 @@ on any mismatch:
    card: B1/B2 at flags 0 and DIAGONALS, B3 (JOINT_YUV preamble) with the
    sweep at NT 242 and 144 and without it, B4 (LOW_QUALITY preamble);
    rebalance on and off, pixels emitted or not, edge shapes (hb=1, wb=1,
-   1x1, a 37x53 grid of partial CTAs), two images back to back; B5/B6
+   1x1, a 37x53 grid of partial CTAs), two images back to back, and for
+   B4 CTA tiles that cross image rows and images (n = 2 and 3); B5/B6
    (the same passes on given border lines / halos) at B = 1, 13, 117 and
    on row-chunk views of a 9x13 plane; and the main path's full-size
-   planes, B3 also on a chroma plane of 4:4:4 size (187,500 blocks);
+   planes, B3 also on a chroma plane of 4:4:4 size (187,500 blocks), B4
+   also on the 2.1 MP gray plane (32,400 blocks);
 6. reproduces the golden SHA-256 digests of the JAX package's output
    planes, upsampled planes and stop flag (GOLDEN below;
    tests/test_torch_isolation.py recomputes them with jpegqs_tpu.engine)
@@ -115,6 +117,10 @@ Q_FLAGS = {q: quality_to_flags(q) for q in range(7)}
 FUSED_FLAG_SETS = ((JOINT_YUV | DIAGONALS, True), (JOINT_YUV, True),
                    (JOINT_YUV | LOW_QUALITY | DIAGONALS, True),
                    (LOW_QUALITY | DIAGONALS, False))
+# B4's extra shapes (hb, wb, n images back to back): block counts that are
+# no multiple of its 16-block CTA tile, tiles that cross image rows and
+# image boundaries
+LQ_TILE_SHAPES = ((3, 7, 3), (1, 17, 2), (5, 6, 3), (2, 9, 3))
 FLAG_NAMES = {JOINT_YUV | DIAGONALS: "JOINT|DIAGONALS",
               JOINT_YUV: "JOINT",
               JOINT_YUV | LOW_QUALITY | DIAGONALS: "JOINT|LQ|DIAGONALS",
@@ -264,6 +270,30 @@ def cuda_ms(fn, reps=5):
     return statistics.median(times)
 
 
+def kernel_ms(fn, reps=5):
+    """Device time of one launch of the one kernel fn() launches:
+    torch.profiler over ``reps`` warm runs, the kernel's time summed over
+    the launches the profiler recorded, divided by their count (it may
+    record fewer than ran).  Kernel time only: an event pair around one
+    launch also counts the gap while the host wrapper enqueues it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    launches = sum(e.count for e in rows)
+    if not launches:
+        raise RuntimeError("the profiler recorded no kernel")
+    return sum(e.self_device_time_total for e in rows) / 1e3 / launches
+
+
 def host_ms(fn, reps=5):
     """Median host-clock time of fn() (which must synchronize)."""
     fn()
@@ -395,8 +425,10 @@ def phase_card(torch):
 JOINT_SMEM = 100 * 128 * 4
 
 # B2's and B3's instantiations, whose designs aim at 4 CTAs of 128 threads
-# per SM: marked in the ptxas report with the CTAs an SM holds
+# per SM, and B4's, which aims at 8 (its shared memory is static): marked
+# in the ptxas report with the CTAs an SM holds
 OCCUPANCY_MARKED = {
+    "solve_lq_pix_kernel": ("B4", 0),
     "solve_rebalance_pix_kernel<144>": ("B2", 0),
     "solve_rebalance_pix_kernel<242>": ("B2", 0),
     "solve_joint_pix_kernel<0>": ("B3", JOINT_SMEM),
@@ -416,8 +448,8 @@ def ctas_per_sm(registers, smem, threads=128):
 
 def ptxas_lines(report, card):
     """One line per kernel instantiation of a ptxas report
-    (``_build.ptxas_report``), B2's and B3's first, marked with the CTAs an
-    SM holds."""
+    (``_build.ptxas_report``), B2's, B3's and B4's first, marked with the
+    CTAs an SM holds."""
     lines = []
     for r in sorted(report, key=lambda r: (r["name"] not in OCCUPANCY_MARKED,
                                            r["name"])):
@@ -631,6 +663,20 @@ def phase_kernels_vs_plain(torch, stats):
         f"1x13, 9x1, 1x1, 9x13, 37x53 and two 5x7 images back to back; "
         f"rebalance on/off; pixels emitted or not)")
     n = 0
+    lq_flags = LOW_QUALITY | DIAGONALS
+    for hb, wb, nimg in LQ_TILE_SHAPES:
+        for reb in (True, False):
+            for want_pix in (True, False):
+                coef, pix, tabs = _random_case(rng, hb * wb * nimg, want_pix)
+                err = check_fused(torch, coef, pix, None, tabs, lq_flags, reb,
+                                  hb, wb, nimg, want_pix)
+                stats["solve_fused_pix_lq"]["max_abs_err"] = max(
+                    stats["solve_fused_pix_lq"]["max_abs_err"], err)
+                n += 1
+    log(f"B4 vs plain: {n} cases of CTA tiles across image rows and images "
+        f"bit-identical ((hb, wb, n) in {LQ_TILE_SHAPES}; rebalance on/off; "
+        f"pixels emitted or not)")
+    n = 0
     given_sets = ([(f, False, False) for f in (0, DIAGONALS)]
                   + [(f, True, joint) for f, joint in FUSED_FLAG_SETS])
     for flags, fused, joint in given_sets:
@@ -773,21 +819,25 @@ def main_path_planes(img):
             image2_444)
 
 
-def phase_full_plane(torch, img, stats, card, t3_rate):
+def phase_full_plane(torch, img, gray, stats, card, t3_rate):
     """Every kernel vs plain on the main path's largest planes of the
     12 MP photo -- B1, B2, B4, B5 and B6 (LQ) on its 375x500 luma plane,
     B3 and B6 (JOINT) on its 188x250 chroma plane, image2 from the luma,
     B5/B6's neighbourhoods materialised from the whole plane as the
-    progress path does -- and the per-kernel numbers of the JSON line:
-    each kernel's first timed configuration, the others as variants."""
+    progress path does -- and B4 on the 135x240 plane of the gray frame;
+    then the per-kernel numbers of the JSON line: each kernel's first
+    timed configuration, the others as variants."""
     (coef, pix, tabs, hb, wb, ccoef, cpix, ctabs, hbc, wbc, image2,
      image2_444) = main_path_planes(img)
-    B, Bc = hb * wb, hbc * wbc
+    gcoef, gpix, gtabs, hbg, wbg = _plane_inputs(gray, 0)
+    B, Bc, Bg = hb * wb, hbc * wbc, hbg * wbg
     for flags in (0, DIAGONALS):
         e1, e2 = check_pair(torch, coef, pix, tabs, flags, True, hb, wb)
-    stats["solve_fused_pix_lq"]["max_abs_err"] = max(
-        stats["solve_fused_pix_lq"]["max_abs_err"],
-        check_fused(torch, coef, pix, None, tabs, Q_FLAGS[0], True, hb, wb))
+    for args in ((coef, pix, None, tabs, Q_FLAGS[0], True, hb, wb),
+                 (gcoef, gpix, None, gtabs, Q_FLAGS[0], True, hbg, wbg)):
+        stats["solve_fused_pix_lq"]["max_abs_err"] = max(
+            stats["solve_fused_pix_lq"]["max_abs_err"],
+            check_fused(torch, *args))
     for c, p, i2, t, h, w, flags in (
             [(ccoef, cpix, image2, ctabs, hbc, wbc, f)
              for f in (Q_FLAGS[6], Q_FLAGS[5], Q_FLAGS[2])]
@@ -809,13 +859,16 @@ def phase_full_plane(torch, img, stats, card, t3_rate):
         stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
     log(f"kernels vs plain: full {hb}x{wb} luma plane (B1; B2 and B5 at "
         f"flags 0 and DIAGONALS; B4 and B6 at q0; B3 at q6 and q2 as a "
-        f"4:4:4-sized chroma plane) and {hbc}x{wbc} chroma plane (B3 at q6, "
-        f"q5 and q2 flags; B6 at q6 and q2) bit-identical")
+        f"4:4:4-sized chroma plane), {hbc}x{wbc} chroma plane (B3 at q6, "
+        f"q5 and q2 flags; B6 at q6 and q2) and {hbg}x{wbg} gray plane (B4 "
+        f"at q0) bit-identical")
 
     def timed(key, name, fn, plain, nbytes, ops, what, plain_reps=3):
-        row = {"ms": cuda_ms(fn), "plain_ms": cuda_ms(plain, plain_reps),
+        row = {"ms": cuda_ms(fn), "kernel_ms": kernel_ms(fn),
+               "plain_ms": cuda_ms(plain, plain_reps),
                **bound_row(nbytes, ops, t3_rate)}
-        log(f"{name} {what}: kernel {row['ms']:.4f} ms, plain "
+        log(f"{name} {what}: kernel {row['ms']:.4f} ms (profiler: "
+            f"{row['kernel_ms']:.4f} ms kernel only), plain "
             f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}; {row['bound_ms_t3']:.4f} ms at T3's fp32 "
             f"rate) [{card}]")
@@ -849,6 +902,11 @@ def phase_full_plane(torch, img, stats, card, t3_rate):
           lambda: cuda_solver.solve_fused_pix(*lq),
           lambda: plain_solve_fused_pix(*lq), B * blk * 4,
           B * LQ_PREAMBLE_OPS, f"on {B} blocks (q0 pass)")
+    lqg = (gcoef, gpix, None, *gtabs, Q_FLAGS[0], True, hbg, wbg)
+    timed("solve_fused_pix_lq", "B4 solve_fused_pix (lq)",
+          lambda: cuda_solver.solve_fused_pix(*lqg),
+          lambda: plain_solve_fused_pix(*lqg), Bg * blk * 4,
+          Bg * LQ_PREAMBLE_OPS, f"on {Bg} blocks (q0 pass, the gray plane)")
     j6 = (ccoef, cpix, image2, *ctabs, Q_FLAGS[6], True, hbc, wbc)
     timed("solve_fused_pix_joint", "B3 solve_fused_pix (joint)",
           lambda: cuda_solver.solve_fused_pix(*j6),
@@ -1282,12 +1340,16 @@ def phase_b7_full_shard(torch, img, stats, card, t3_rate):
             timed:
         outs = [torch.empty_like(ext[0]) for _ in range(2)]
         args = (*ext, *t, flags, True, w, b0, b1, edges, *outs)
-        row = {"ms": cuda_ms(lambda: cuda_solver.solve_range_pix(*args)),
+
+        def run():
+            return cuda_solver.solve_range_pix(*args)
+        row = {"ms": cuda_ms(run), "kernel_ms": kernel_ms(run),
                "plain_ms": cuda_ms(lambda: plain_solve_range_pix(*args), 1),
                **bound_row(nbytes, ops, t3_rate)}
         what = (f"on {nb} blocks (last of 4 {plane} shards, flags "
                 f"{FLAG_NAMES.get(flags, flags)})")
-        log(f"B7 {key} {what}: kernel {row['ms']:.4f} ms, plain "
+        log(f"B7 {key} {what}: kernel {row['ms']:.4f} ms (profiler: "
+            f"{row['kernel_ms']:.4f} ms kernel only), plain "
             f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}; {row['bound_ms_t3']:.4f} ms at T3's fp32 "
             f"rate) [{card}]")
@@ -1650,7 +1712,7 @@ def main() -> int:
     log(f"inputs: synthetic {COLOR_HW[1]}x{COLOR_HW[0]} 4:2:0 and "
         f"{GRAY_HW[1]}x{GRAY_HW[0]} gray, IJG q75, "
         f"{time.perf_counter() - t0:.1f} s")
-    phase_full_plane(torch, color, stats, card, t3_rate)
+    phase_full_plane(torch, color, gray, stats, card, t3_rate)
     stamp("full planes")
     # the q3 runs of the first slice at depth 1, to keep the whole script
     # near its first run time as paths are added
@@ -1714,8 +1776,9 @@ def main() -> int:
             "main_path_launches": main_launches.get(name, 0),
             "on_path": name not in OFF_PATH,
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "bound_ms_t3": s["bound_ms_t3"],
+            "kernel_ms": s.get("kernel_ms"), "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+            "bound_ms_t3": s["bound_ms_t3"],
             "library_ms": None,
             **({"variants": s["variants"]} if "variants" in s else {})})
     print(json.dumps({"kernels": rows}), flush=True)

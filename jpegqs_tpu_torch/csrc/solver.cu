@@ -11,7 +11,8 @@
 // Layouts (the JAX package's public layouts): coefficients and pixels are
 // planar int32[64, B] -- row k (natural position / pixel r*8+c) has stride B,
 // so thread b of a warp reads address k*B + b and neighbouring threads read
-// neighbouring words.  One thread owns one 8x8 block for the whole pass.
+// neighbouring words.  One thread owns one 8x8 block for the whole pass,
+// except in B4, where 8 lanes of a warp share a block.
 // The solver tables are f32[64, pitch]: a row holds the NT weights of one
 // coefficient, padded with zeros to a multiple of four (pitch), so a row
 // reads as float4.
@@ -554,7 +555,9 @@ __device__ __forceinline__ void joint_fblock(const H& h, const G& g,
 
 // LOW_QUALITY range (quantsmooth.h:929-938, planar.low_quality_range_p): a
 // strict left fold of (float)(div * |AC|) with the product in 32-bit int,
-// times 4 / sum|AC| when that sum is not 0, min 128, roundf.
+// times 4 / sum|AC| when that sum is not 0, min 128, roundf.  This and
+// lq_fblock are the one-thread forms B6 and B7 run; B4 runs the same
+// arithmetic on 8 lanes (lq_range_lanes and its shrink loop).
 __device__ __forceinline__ float lq_range(const int (&c)[64],
                                           const int* __restrict__ div) {
   float acc = 0.0f;
@@ -844,32 +847,333 @@ solve_joint_pix_kernel(const FusedArgs a) {
 
 // B4 (LOW_QUALITY preamble; never sweeps).
 // Bound on this card: bytes -- ~1.0 KB per block (coefficients in and out,
-// the 9-block pixel window, pixels out) against ~6.9k fp32 ops.
-// Design: one thread per block; the halo and the predicted block are held
-// in registers beside the coefficients, and some of them spill to local
-// memory (L1-cached; the ptxas report says how much).
-__global__ void __launch_bounds__(kThreads)
-solve_lq_pix_kernel(const FusedArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.nblocks) return;
-  const size_t S = (size_t)a.nblocks;
-  const int* __restrict__ div = a.div;
-  const int* __restrict__ x1 = a.x1;
-  const int* __restrict__ qshr = a.qshr;
+// the 9-block pixel window, pixels out) against ~6.9k fp32 ops; the
+// operations' issue slots come close to it.
+// Design: kLqLanes = 8 lanes of one warp per block, lane r owning pixel row
+// r, FDCT/IDCT column r and row r, coefficient row r (coefficients
+// 8r..8r+7); a CTA of 128 threads takes kLqBlocks = 16 consecutive blocks,
+// which may cross image rows and images.  The CTA stages, from coalesced
+// loads (a warp reads 8 consecutive blocks, 32 bytes, of each of 4 planar
+// rows), its coefficient tile and its pixel window in shared memory,
+// the pixels as fp32 (integers 0..255, exact): each block's 8 rows with the
+// row above (row 7 of the block above) and the row below (row 0 of the
+// block below), plus the left / right columns of the blocks before and
+// after the tile, with the quant tables and each block's edge flags (one
+// thread a block works them out: the integer divides are not repeated per
+// lane).  Each lane then builds its three halo rows from there with its
+// block's edge flags (the vertical ring first, as load_halo), folds its 8
+// pixels' shrinks in lq_fblock's order, and the transposes of the FDCT and
+// the IDCT go through the block's 8x8 scratch matrix (__syncwarp: a block's
+// lanes are one warp's).  lq_range's float fold stays one chain, handed
+// from lane to lane (__shfl_sync); its integer sum and the rebalance's u64
+// sums are split over the lanes and combined with xor shuffles (wrapping
+// sums: exact in any order).  The results go back through shared memory to
+// coalesced stores.  Rows are padded to 9 words and block matrices to a
+// pitch of 8 mod 32 banks, so a lane group's row and column accesses hit 32
+// different banks.  Each thread stages and stores one block's rows k0 +
+// 8i with pointer strides: index arithmetic per element was the first
+// layout's largest integer cost (PERF.md, Findings).  At most 64 registers
+// (8 CTAs, 32 warps, an SM; ptxas's report says how many CTAs fit).
+// pix_out never aliases pix_in.
+// ---------------------------------------------------------------------------
+constexpr int kLqLanes = 8;
+constexpr int kLqBlocks = kThreads / kLqLanes;  // 16 blocks a CTA
+constexpr int kLqPitch = 9;                      // a staged row, padded
+constexpr int kLqMat = 8 * kLqPitch;             // an 8x8 matrix: 72 words
+constexpr int kLqHalo = 104;                     // 10 rows, padded
+static_assert(kLqMat % 32 == 8 && kLqHalo % 32 == 8 &&
+                  kLqHalo >= 10 * kLqPitch,
+              "B4's block pitches must be 8 banks apart");
 
-  int c[64];
+// B4's shared memory per CTA (17,536 bytes).  v: the pixel window, one
+// 10-row matrix per block of the tile and of its two neighbours (index
+// jj + 1 for block b0 + jj, jj = -1..kLqBlocks): row 0 the block above's
+// row 7, rows 1..8 the block's own, row 9 the block below's row 0; of the
+// two neighbours only the column next to the tile.  c: the coefficient
+// tile, in, then out (each lane reads and writes its own row).  w: each
+// block's scratch matrix (fb, the FDCT's and the IDCT's intermediate
+// rows, then the emitted pixels).  edge: each tile block's edge flags.
+// tab: the quant tables div, x1, qshr (a lane reads its row's entries).
+struct LqSmem {
+  float v[(kLqBlocks + 2) * kLqHalo];
+  int c[kLqBlocks * kLqMat];
+  u32 w[kLqBlocks * kLqMat];
+  int edge[kLqBlocks];
+  int tab[3 * 64];
+};
+constexpr int kLqTop = 1, kLqBottom = 2, kLqLeft = 4, kLqRight = 8;
+
+// Element k (r * 8 + c) of tile block j in c / w.
+__device__ __forceinline__ int lq_mat(int j, int k) {
+  return j * kLqMat + (k >> 3) * kLqPitch + (k & 7);
+}
+
+// The tile block and first planar row a thread stages and stores: rows
+// k0, k0 + 8, ..., k0 + 56 of block j, so at each step a warp covers 8
+// consecutive blocks of 4 consecutive planar rows.
+__device__ __forceinline__ void lq_tile_elem(int t, int& j, int& k0) {
+  j = (t & 7) + 8 * ((t >> 5) & 1);
+  k0 = ((t >> 3) & 3) + 4 * (t >> 6);
+}
+
+// Pixel k of block blk as fp32, or 0 outside the plane (such a value is
+// never read: a block reads a neighbour only where it has one).
+__device__ __forceinline__ float lq_px(const int* __restrict__ pix, size_t S,
+                                       long long blk, int k) {
+  return blk >= 0 && blk < (long long)S ? (float)pix[k * S + blk] : 0.0f;
+}
+
+// lq_range on the lanes of one block: lane ln holds coefficients
+// 8 ln .. 8 ln + 7 (cr, incoming).  The float fold runs k = 1..63 in order,
+// lane after lane: each stage, every lane folds its own terms onto the
+// running value and the value of the stage's lane is passed on (lane 0's
+// term of the DC is +0, which leaves the fold unchanged: it never holds
+// -0).  The integer sum is combined with xor shuffles.
+__device__ __forceinline__ float lq_range_lanes(const int* cr, int ln,
+                                                const int* div) {
+  float p[8];
+  u32 s = 0;
 #pragma unroll
-  for (int k = 0; k < 64; ++k) c[k] = a.coef_in[k * S + b];
-  int h[100];
-  const int loc = b % (a.hb * a.wb);
-  const int by = loc / a.wb, bx = loc % a.wb;
-  load_halo(a.pix_in, S, b, a.wb, by == 0, by == a.hb - 1, bx == 0,
-            bx == a.wb - 1, h);
-  float fb[64];
-  lq_fblock(h, lq_range(c, div), fb);
-  fdct_clamp(fb, c, div, x1, qshr);
-  if (a.do_rebalance) rebalance(c, div, x1, qshr);
-  emit_block(c, a.coef_out, a.pix_out, S, b);
+  for (int k = 0; k < 8; ++k) {
+    const int i = ln * 8 + k;
+    const u32 a = i == 0 ? 0u : (cr[k] < 0 ? 0u - (u32)cr[k] : (u32)cr[k]);
+    p[k] = (float)(int)((u32)div[i] * a);
+    s += a;
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int st = 0; st < kLqLanes; ++st) {
+    float mine = acc;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) mine = __fadd_rn(mine, p[k]);
+    acc = __shfl_sync(0xffffffffu, mine, st, kLqLanes);
+  }
+#pragma unroll
+  for (int off = 1; off < kLqLanes; off <<= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off, kLqLanes);
+  float rng = acc;
+  if (s != 0) rng = __fmul_rn(acc, __fdiv_rn(4.0f, (float)(int)s));
+  return roundf(fminf(rng, 128.0f));
+}
+
+// The rebalance on the lanes of one block: c the lane's coefficients
+// 8 ln .. 8 ln + 7 (the DC, lane 0's first, is kept); the sums m0 / m1
+// are split over the lanes and combined with xor shuffles; each lattice
+// point a0 is computed once and kept for the clamp.
+__device__ __forceinline__ void rebalance_lanes(int (&c)[8], int ln,
+                                                const int* div, const int* x1,
+                                                const int* qshr) {
+  u64 m0 = 0, m1 = 0;
+  int a0[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int i = ln * 8 + k;
+    a0[k] = orig_coef(c[k], div[i], x1[i], qshr[i]);
+    if (i == 0) continue;
+    m0 += (u64)((long long)c[k] * a0[k]);
+    m1 += (u64)((long long)a0[k] * a0[k]);
+  }
+#pragma unroll
+  for (int off = 1; off < kLqLanes; off <<= 1) {
+    m0 += __shfl_xor_sync(0xffffffffu, m0, off, kLqLanes);
+    m1 += __shfl_xor_sync(0xffffffffu, m1, off, kLqLanes);
+  }
+  const long long sm0 = (long long)m0, sm1 = (long long)m1;
+  if (sm1 > sm0) {
+    const long long num = (long long)((m1 << 13) + (u64)(sm0 >> 1));
+    const long long den = sm0 == 0 ? 1 : sm0;
+    const long long q64 =
+        den == -1 ? (long long)(0ull - (u64)num) : num / den;  // C trunc
+    const u32 mul = (u32)(u64)q64;                             // int trunc
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = ln * 8 + k;
+      if (i == 0) continue;
+      const long long prod = (int)((u32)c[k] * mul);
+      c[k] = interval_clamp((int)((prod + 0x1000) >> 13), a0[k], div[i]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 8)
+solve_lq_pix_kernel(const FusedArgs a) {
+  __shared__ LqSmem sm;
+  const int t = threadIdx.x;
+  const long long b0 = (long long)blockIdx.x * kLqBlocks;
+  const size_t S = (size_t)a.nblocks;
+  const int wb = a.wb;
+
+  // Staging: the quant tables, the coefficient tile and the tile's own
+  // pixel rows ...
+  if (t < 64) {
+    sm.tab[t] = a.div[t];
+    sm.tab[64 + t] = a.x1[t];
+    sm.tab[128 + t] = a.qshr[t];
+  }
+  const int* div = sm.tab;
+  const int* x1 = sm.tab + 64;
+  const int* qshr = sm.tab + 128;
+  int tj, tk;
+  lq_tile_elem(t, tj, tk);
+  const long long tb = b0 + tj;
+  const bool tin = tb < (long long)S;
+  {
+    const size_t off = tin ? tk * S + tb : 0;
+    const int* cin = a.coef_in + off;
+    const int* pin = a.pix_in + off;
+    int* cs = sm.c + lq_mat(tj, tk);
+    float* vs = sm.v + (tj + 1) * kLqHalo + kLqPitch + tk;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      cs[i * kLqPitch] = tin ? cin[i * 8 * S] : 0;
+      vs[i * kLqPitch] = tin ? (float)pin[i * 8 * S] : 0.0f;
+    }
+  }
+  // ... the row above and the row below of each tile block, and its edge
+  // flags, from its position inside its own image (as B2) ...
+  {
+    const int j = t & (kLqBlocks - 1), q = t / kLqBlocks;
+    float* vj = sm.v + (j + 1) * kLqHalo;
+    vj[q] = lq_px(a.pix_in, S, b0 + j - wb, 56 + q);
+    vj[9 * kLqPitch + q] = lq_px(a.pix_in, S, b0 + j + wb, q);
+    if (q == 0) {
+      const int loc = (int)((u32)(b0 + j) % (u32)(a.hb * wb));
+      const int by = loc / wb, bx = loc - by * wb;
+      sm.edge[j] = (by == 0 ? kLqTop : 0) |
+                   (by == a.hb - 1 ? kLqBottom : 0) |
+                   (bx == 0 ? kLqLeft : 0) | (bx == wb - 1 ? kLqRight : 0);
+    }
+  }
+  // ... and column 7 of the block before the tile (with its rows above
+  // and below), column 0 of the block after it.
+  if (t < 10) {
+    const int R = t;
+    const long long blk = b0 - 1 + (R == 0 ? -wb : R == 9 ? wb : 0);
+    const int k = R == 0 ? 63 : R == 9 ? 7 : (R - 1) * 8 + 7;
+    sm.v[R * kLqPitch + 7] = lq_px(a.pix_in, S, blk, k);
+  } else if (t >= 16 && t < 26) {
+    const int R = t - 16;
+    const long long blk = b0 + kLqBlocks + (R == 0 ? -wb : R == 9 ? wb : 0);
+    const int k = R == 0 ? 56 : R == 9 ? 0 : (R - 1) * 8;
+    sm.v[(kLqBlocks + 1) * kLqHalo + R * kLqPitch] = lq_px(a.pix_in, S, blk,
+                                                           k);
+  }
+  __syncthreads();
+
+  // One block per kLqLanes lanes; lanes of blocks past the plane compute
+  // on zeros and store nothing (they take part in the shuffles).
+  const int j = t / kLqLanes, ln = t % kLqLanes;
+  const int* cr = sm.c + lq_mat(j, ln * 8);  // the lane's incoming row
+  const float rng = lq_range_lanes(cr, ln, div);
+
+  const int edge = sm.edge[j];
+  const bool et = edge & kLqTop, ed = edge & kLqBottom, el = edge & kLqLeft,
+             er = edge & kLqRight;
+  // halo rows ln .. ln + 2: the staged row, or at a flagged top / bottom
+  // edge the block's own first / last row; the ring columns from the
+  // neighbours' staged rows (rows 0 / 9 of them: the vertical ring, which
+  // makes the corners), or the block's own at a flagged side edge
+  const float* vj = sm.v + (j + 1) * kLqHalo;
+  float h[3][10];
+#pragma unroll
+  for (int dr = 0; dr < 3; ++dr) {
+    const int hr = ln + dr;
+    const int R = hr == 0 && et ? 1 : (hr == 9 && ed ? 8 : hr);
+    const float* row = vj + R * kLqPitch;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) h[dr][q + 1] = row[q];
+    h[dr][0] = el ? row[0] : row[7 - kLqHalo];
+    h[dr][9] = er ? row[7] : row[kLqHalo];
+  }
+
+  // the shrink of pixels (ln, 0..7), lq_fblock's fold order, into w
+  u32* wj = sm.w + j * kLqMat;
+  u32* wrow = wj + ln * kLqPitch;
+  const float c1 = __int_as_float(0x3FB504F3);  // planar.LQ_C1
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float av = h[1][q + 1];
+    float acc0 = 0.0f, accn = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int m = n < 4 ? n : n + 1;           // skip the centre
+      const int dy = m / 3 - 1, dx = m % 3 - 1;
+      // both pixels are integers 0..255: the fp32 difference is exact
+      const float t0 = __fsub_rn(av, h[1 + dy][q + 1 + dx]);
+      float tt = fmaxf(__fsub_rn(rng, fabsf(t0)), 0.0f);  // integral
+      tt = __fmul_rn(tt, tt);                              // < 2^24: exact
+      const float aw = __fmul_rn(dx != 0 && dy != 0 ? c1 : 2.0f, tt);
+      acc0 = __fadd_rn(acc0, __fmul_rn(__fmul_rn(t0, tt), aw));
+      accn = __fadd_rn(accn, __fmul_rn(aw, aw));
+    }
+    const int ai = (int)av;
+    const float shifted = __fsub_rn(av, __fdiv_rn(acc0, accn));
+    const int na = accn > 0.0f ? c_cast(shifted) : ai;
+    wrow[q] = __float_as_uint((float)(int)((u32)na - 128u));
+  }
+  __syncwarp();
+
+  // fdct_clamp: column ln (read and rewritten by this lane only), then
+  // row ln against the incoming row
+  float x[8], o[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) x[r] = __uint_as_float(wj[r * kLqPitch + ln]);
+  fdct_pass(x, o);
+#pragma unroll
+  for (int u = 0; u < 8; ++u) wj[u * kLqPitch + ln] = __float_as_uint(o[u]);
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < 8; ++q) x[q] = __uint_as_float(wrow[q]);
+  fdct_pass(x, o);
+  int c[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int i = ln * 8 + q, dv = div[i];
+    const int add = c_cast(roundf(__fmul_rn(o[q], 0.125f)));
+    c[q] = interval_clamp(add, orig_coef(cr[q], dv, x1[i], qshr[i]), dv);
+  }
+  if (a.do_rebalance) rebalance_lanes(c, ln, div, x1, qshr);
+
+  // emit: the row back into the tile, and the IDCT (column ln, then row
+  // ln) into w
+  int* crow = sm.c + lq_mat(j, ln * 8);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) crow[q] = c[q];
+  if (a.pix_out != nullptr) {
+    __syncwarp();
+    u32 xi[8], oi[8];
+    const int* cj = sm.c + j * kLqMat;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) xi[r] = (u32)cj[r * kLqPitch + ln];
+    islow_pass(xi, oi);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      wj[r * kLqPitch + ln] = (u32)((int)(oi[r] + 1024u) >> 11);
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < 8; ++q) xi[q] = wrow[q];
+    islow_pass(xi, oi);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int v = (int)(oi[q] + (257u << 17)) >> 18;
+      wrow[q] = (u32)(v < 0 ? 0 : (v > 255 ? 255 : v));
+    }
+  }
+  __syncthreads();
+
+  // coalesced stores of the tile's coefficients and pixels
+  if (tin) {
+    const size_t off = tk * S + tb;
+    const int* cs = sm.c + lq_mat(tj, tk);
+    const u32* ws = sm.w + lq_mat(tj, tk);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a.coef_out[off + i * 8 * S] = cs[i * kLqPitch];
+    if (a.pix_out != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a.pix_out[off + i * 8 * S] = (int)ws[i * kLqPitch];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1209,7 +1513,8 @@ int jq_solve_fused_pix(const int* coef_in, const int* pix_in,
     const dim3 grid(blocks_for(nblocks));
     cudaStream_t s = (cudaStream_t)stream;
     if (image2 == nullptr)
-      solve_lq_pix_kernel<<<grid, kThreads, 0, s>>>(a);
+      solve_lq_pix_kernel<<<(nblocks + kLqBlocks - 1) / kLqBlocks, kThreads,
+                            0, s>>>(a);
     else if (nt == 0)
       return (int)launch_joint<0>(a, grid, s);
     else if (nt == 144)

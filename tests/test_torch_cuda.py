@@ -56,9 +56,12 @@ def test_kernels_vs_plain_on_card(cuda, hb, wb, flags):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# (3, 7, 3), (1, 17, 2): block counts that are no multiple of B4's 16-block
+# CTA tile, tiles that cross image rows and image boundaries
 @pytest.mark.cuda
 @pytest.mark.parametrize("hb,wb,n", [(1, 13, 1), (9, 1, 1), (1, 1, 1),
-                                     (9, 13, 1), (4, 5, 2), (37, 53, 1)])
+                                     (9, 13, 1), (4, 5, 2), (37, 53, 1),
+                                     (3, 7, 3), (1, 17, 2)])
 @pytest.mark.parametrize("flags,joint", [
     (JOINT_YUV | DIAGONALS, True), (JOINT_YUV, True),
     (JOINT_YUV | LOW_QUALITY | DIAGONALS, True),

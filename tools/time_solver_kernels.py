@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the solver kernels B2 (solve_rebalance_pix) and B3 (solve_fused_pix
-with the JOINT_YUV preamble) of a checkout of this repository on one card,
-at the main path's largest inputs.
+"""Time the solver kernels B2 (solve_rebalance_pix), B3 (solve_fused_pix
+with the JOINT_YUV preamble) and B4 (solve_fused_pix with the LOW_QUALITY
+preamble) of a checkout of this repository on one card, at the main
+path's largest inputs.
 
     python3 tools/time_solver_kernels.py [TREE]
 
@@ -16,17 +17,21 @@ one card within one call, in turns:
 
 B2 runs on the 12 MP 4:2:0 photo's 375x500 luma plane (q3 pass, NT 144;
 q4-q6 luma pass, NT 242); B3 on its 188x250 chroma plane (q6: sweep NT
-242; q2: no sweep) and on a chroma plane of 4:4:4 size.
+242; q2: no sweep) and on a chroma plane of 4:4:4 size; B4 (q0 pass) on
+the luma plane and on the 135x240 plane of the 2.1 MP gray frame.
 
-Then the same kernels on planes of exactly m CTAs of 128 threads per SM
-(m = 1, 2, 3, 4: one wave; 8: two), random coefficients and pixels: how
-the time grows with the warps an SM holds tells a latency-bound kernel
-(little growth up to the occupancy limit) from an issue-bound one
-(growth in proportion).
+Then the same kernels on planes of exactly m CTAs of 128 one-block
+threads per SM (m = 1, 2, 3, 4: one wave for B2/B3; 8: two), random
+coefficients and pixels: how the time grows with the warps an SM holds
+tells a latency-bound kernel (little growth up to the occupancy limit)
+from an issue-bound one (growth in proportion).  The planes are the same
+work for every tree; a kernel with several lanes per block (B4 since its
+redesign: 8) runs them as that many times the CTAs.
 
 Prints the ptxas lines of TREE's build, then one JSON line: the card
 (nvidia-smi name and power limit), the tree, per configuration the median
-of 20 CUDA-event timed launches (ms), and per m the scaling times.  Exits
+of 20 CUDA-event timed launches (ms) and the profiler's kernel-only time
+per launch over 20 (kernel_ms), and per m the scaling times.  Exits
 1 without a CUDA device.
 """
 
@@ -75,10 +80,12 @@ def main() -> int:
     img = synth.make_image(*smoke.COLOR_HW, color=True, seed=0)
     (coef, pix, tabs, hb, wb, ccoef, cpix, ctabs, hbc, wbc, image2,
      image2_444) = smoke.main_path_planes(img)
+    gray = synth.make_image(*smoke.GRAY_HW, color=False, seed=0)
+    gcoef, gpix, gtabs, hbg, wbg = smoke._plane_inputs(gray, 0)
     q = smoke.Q_FLAGS
-    B, Bc = hb * wb, hbc * wbc
+    B, Bc, Bg = hb * wb, hbc * wbc, hbg * wbg
     b2 = cuda_solver.solve_rebalance_pix
-    b3 = cuda_solver.solve_fused_pix
+    b3 = cuda_solver.solve_fused_pix      # B4 when image2 is None
     runs = {
         f"B2 NT 144, {B} blocks":
             lambda: b2(coef, pix, *tabs, q[3], True, hb, wb),
@@ -92,8 +99,13 @@ def main() -> int:
             lambda: b3(coef, pix, image2_444, *tabs, q[6], True, hb, wb),
         f"B3 q2, {B} blocks (4:4:4)":
             lambda: b3(coef, pix, image2_444, *tabs, q[2], True, hb, wb),
+        f"B4 q0, {B} blocks":
+            lambda: b3(coef, pix, None, *tabs, q[0], True, hb, wb),
+        f"B4 q0, {Bg} blocks (gray)":
+            lambda: b3(gcoef, gpix, None, *gtabs, q[0], True, hbg, wbg),
     }
     ms = {name: smoke.cuda_ms(fn, REPS) for name, fn in runs.items()}
+    kernel_ms = {name: smoke.kernel_ms(fn, REPS) for name, fn in runs.items()}
 
     rng = np.random.default_rng(0)
     qs = rng.integers(4, 60, 64).astype(np.uint16)
@@ -116,9 +128,12 @@ def main() -> int:
             "B3 q6": smoke.cuda_ms(lambda: b3(
                 scoef, spix, simg2, *stabs, q[6], True, sh, sw), REPS),
             "B3 q2": smoke.cuda_ms(lambda: b3(
-                scoef, spix, simg2, *stabs, q[2], True, sh, sw), REPS)}
+                scoef, spix, simg2, *stabs, q[2], True, sh, sw), REPS),
+            "B4 q0": smoke.cuda_ms(lambda: b3(
+                scoef, spix, None, *stabs, q[0], True, sh, sw), REPS)}
     print(json.dumps({"card": card, "tree": tree, "reps": REPS, "ms": ms,
-                      "scaling_ms": scaling}), flush=True)
+                      "kernel_ms": kernel_ms, "scaling_ms": scaling}),
+          flush=True)
     return 0
 
 
