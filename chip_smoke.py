@@ -11,7 +11,8 @@ on any mismatch:
 1. prints the card (nvidia-smi name, power limit) and the versions;
 2. builds the kernels and prints the build time and the ptxas report of
    every kernel instantiation (registers, spills, static shared memory),
-   B2's, B3's and B4's marked with the CTAs of 128 threads an SM holds;
+   the solver passes' (B2-B7) marked with the CTAs of 128 threads an SM
+   holds;
 3. runs the arithmetic canaries: no mul+add contraction, an exact fp32
    left fold, IEEE division;
 4. T3, the fp32 peak probe: bit-identical to its plain version on a small
@@ -23,10 +24,13 @@ on any mismatch:
    rebalance on and off, pixels emitted or not, edge shapes (hb=1, wb=1,
    1x1, a 37x53 grid of partial CTAs), two images back to back, and for
    B4 CTA tiles that cross image rows and images (n = 2 and 3); B5/B6
-   (the same passes on given border lines / halos) at B = 1, 13, 117 and
-   on row-chunk views of a 9x13 plane; and the main path's full-size
-   planes, B3 also on a chroma plane of 4:4:4 size (187,500 blocks), B4
-   also on the 2.1 MP gray plane (32,400 blocks);
+   (the same passes on given border lines / halos) at B = 1, 13, 37, 117
+   and on row-chunk and block-slice views of a 9x13 plane (n no multiple
+   of B6-lq's 16-block tile); and the main path's full-size
+   planes, B3 and B7-joint also on a chroma plane of 4:4:4 size (187,500
+   blocks; the joint passes of B6 and B7 take B3's design above two CTAs
+   an SM, a one-thread body below), B4 also on the 2.1 MP gray plane
+   (32,400 blocks);
 6. reproduces the golden SHA-256 digests of the JAX package's output
    planes, upsampled planes and stop flag (GOLDEN below;
    tests/test_torch_isolation.py recomputes them with jpegqs_tpu.engine)
@@ -44,7 +48,9 @@ on any mismatch:
    the fused run, times;
 9. the sharded path, with its shards on this one card: B7 bit for bit
    against its plain version on every shard of small random planes (2-4
-   shards, dead pad rows, every edge position, split ranges) and on the
+   shards, dead pad rows, every edge position, split ranges, ranges that
+   start and end inside a 16-block tile, a single block, rows 1 and 37
+   blocks wide) and on the
    last of 4 shards of the 12 MP planes at each variant, with its time
    there; the auto-sharded engine (``engine._try_smooth_sharded``) on a
    4032x3024 4:2:0 frame at q6 n3 over 2 and 4 shards with JPEGQS_OVERLAP
@@ -274,24 +280,28 @@ def kernel_ms(fn, reps=5):
     """Device time of one launch of the one kernel fn() launches:
     torch.profiler over ``reps`` warm runs, the kernel's time summed over
     the launches the profiler recorded, divided by their count (it may
-    record fewer than ran).  Kernel time only: an event pair around one
+    record fewer than ran, or none: then the window is tried again, up to
+    three times).  Kernel time only: an event pair around one
     launch also counts the gap while the host wrapper enqueues it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    launches = sum(e.count for e in rows)
-    if not launches:
-        raise RuntimeError("the profiler recorded no kernel")
-    return sum(e.self_device_time_total for e in rows) / 1e3 / launches
+    for _ in range(3):      # a window may record nothing: try it again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total]
+        launches = sum(e.count for e in rows)
+        if launches:
+            return (sum(e.self_device_time_total for e in rows) / 1e3
+                    / launches)
+    raise RuntimeError("the profiler recorded no kernel")
 
 
 def host_ms(fn, reps=5):
@@ -420,20 +430,25 @@ def phase_card(torch):
         f"python {sys.version.split()[0]}")
 
 
-# B3's dynamic shared memory per CTA (kJointSmem in csrc/solver.cu); ptxas
-# reports static shared memory only
+# the joint kernels' dynamic shared memory per CTA (kJointSmem in
+# csrc/solver.cu); ptxas reports static shared memory only
 JOINT_SMEM = 100 * 128 * 4
 
-# B2's and B3's instantiations, whose designs aim at 4 CTAs of 128 threads
-# per SM, and B4's, which aims at 8 (its shared memory is static): marked
-# in the ptxas report with the CTAs an SM holds
+# Each pass's instantiations, marked in the ptxas report with the CTAs of
+# 128 threads an SM holds: B2's (B7's B2 form) and the joint ones (B3,
+# B6-joint <NT,1>, B7-joint <NT,0>) aim at 4, the LOW_QUALITY ones (B4 and
+# B7-lq <0>, B6-lq <1>; static shared memory) at 8; B5 keeps its
+# one-thread form
 OCCUPANCY_MARKED = {
-    "solve_lq_pix_kernel": ("B4", 0),
-    "solve_rebalance_pix_kernel<144>": ("B2", 0),
-    "solve_rebalance_pix_kernel<242>": ("B2", 0),
-    "solve_joint_pix_kernel<0>": ("B3", JOINT_SMEM),
-    "solve_joint_pix_kernel<144>": ("B3", JOINT_SMEM),
-    "solve_joint_pix_kernel<242>": ("B3", JOINT_SMEM)}
+    "solve_lq_kernel<0>": ("B4/B7-lq", 0),
+    "solve_lq_kernel<1>": ("B6-lq", 0),
+    **{f"solve_rebalance_pix_kernel<{nt}>": ("B2/B7", 0)
+       for nt in (144, 242)},
+    **{f"solve_joint_kernel<{nt},0>": ("B3/B7-joint", JOINT_SMEM)
+       for nt in (0, 144, 242)},
+    **{f"solve_joint_kernel<{nt},1>": ("B6-joint", JOINT_SMEM)
+       for nt in (0, 144, 242)},
+    **{f"solve_rebalance_kernel<{nt}>": ("B5", 0) for nt in (144, 242)}}
 
 
 def ctas_per_sm(registers, smem, threads=128):
@@ -448,7 +463,7 @@ def ctas_per_sm(registers, smem, threads=128):
 
 def ptxas_lines(report, card):
     """One line per kernel instantiation of a ptxas report
-    (``_build.ptxas_report``), B2's, B3's and B4's first, marked with the
+    (``_build.ptxas_report``), the solver passes' first, marked with the
     CTAs an SM holds."""
     lines = []
     for r in sorted(report, key=lambda r: (r["name"] not in OCCUPANCY_MARKED,
@@ -682,12 +697,13 @@ def phase_kernels_vs_plain(torch, stats):
     for flags, fused, joint in given_sets:
         for reb in (True, False):
             for want_pix in (True, False):
-                for B in (1, 13, 117):
+                for B in (1, 13, 37, 117):
                     case = _given_case(rng, B, fused, joint)
                     views = [case]
-                    if B == 117:        # row chunks of a 9x13 plane
-                        views += [_chunk(case, r0, nrows, 13)
+                    if B == 117:        # row chunks and slices of 9x13
+                        views += [_chunk(case, r0 * 13, (r0 + nrows) * 13)
                                   for r0, nrows in CHUNKS]
+                        views += [_chunk(case, a, b) for a, b in SLICES]
                     for coef, nbhd, image2, tabs in views:
                         err = check_given(torch, fused, coef, nbhd, image2,
                                           tabs, flags, reb, want_pix)
@@ -697,14 +713,16 @@ def phase_kernels_vs_plain(torch, stats):
                         n += 1
     names = ", ".join(FLAG_NAMES[f] for f, _ in FUSED_FLAG_SETS)
     log(f"B5/B6 vs plain: {n} small cases bit-identical (B5 at flags 0 and "
-        f"DIAGONALS, B6 at {names}; B = 1, 13, 117 and row chunks (r0, "
-        f"rows) {CHUNKS} of a 9x13 plane as column-slice views; rebalance "
-        f"on/off; pixels emitted or not)")
+        f"DIAGONALS, B6 at {names}; B = 1, 13, 37, 117 and row chunks (r0, "
+        f"rows) {CHUNKS} and block slices {SLICES} of a 9x13 plane as "
+        f"column-slice views; rebalance on/off; pixels emitted or not)")
 
 
 # row chunks (first row, rows) of the 9x13 plane: the first, middle and
-# last rows
+# last rows; and block slices [a, b) of it that start and end inside a
+# 16-block tile of B6-lq (37 and 17 blocks: no multiple of 16)
 CHUNKS = ((0, 2), (4, 3), (8, 1))
+SLICES = ((3, 40), (100, 117))
 
 
 def given_key(fused, joint):
@@ -725,10 +743,10 @@ def _given_case(rng, B, fused, joint):
     return coef, nbhd, image2, tabs
 
 
-def _chunk(case, r0, nrows, wb):
-    """Block rows [r0, r0 + nrows) of a whole-plane case, as views."""
+def _chunk(case, a, b):
+    """Blocks [a, b) of a whole-plane case, as column-slice views."""
     coef, nbhd, image2, tabs = case
-    s = slice(r0 * wb, (r0 + nrows) * wb)
+    s = slice(a, b)
     return (coef[:, s], nbhd[:, s], None if image2 is None else image2[:, s],
             tabs)
 
@@ -852,16 +870,25 @@ def phase_full_plane(torch, img, gray, stats, card, t3_rate):
     given = [(False, coef, borders, None, tabs, f) for f in (0, DIAGONALS)]
     given += [(True, coef, halo, None, tabs, Q_FLAGS[0])]
     given += [(True, ccoef, chalo, image2, ctabs, f)
-              for f in (Q_FLAGS[6], Q_FLAGS[2])]
+              for f in (Q_FLAGS[6], JOINT_YUV, Q_FLAGS[2])]
     for fused, c, nbhd, i2, t, flags in given:
         err = check_given(torch, fused, c, nbhd, i2, t, flags, True)
         key = given_key(fused, i2 is not None)
         stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+    # B6-joint (above) and B7-joint take B3's design on launches of more
+    # than two CTAs an SM, the one-thread body on smaller ones (the small
+    # cases): B7-joint here over the 4:4:4-sized plane in two ranges
+    for flags in (Q_FLAGS[6], JOINT_YUV, Q_FLAGS[2]):
+        err = check_range(torch, (coef, pix, image2_444), tabs, flags, True,
+                          wb, (0, B // 2, B), (0, hb - 1), True)
+        stats["solve_range_pix_joint"]["max_abs_err"] = max(
+            stats["solve_range_pix_joint"]["max_abs_err"], err)
     log(f"kernels vs plain: full {hb}x{wb} luma plane (B1; B2 and B5 at "
-        f"flags 0 and DIAGONALS; B4 and B6 at q0; B3 at q6 and q2 as a "
-        f"4:4:4-sized chroma plane), {hbc}x{wbc} chroma plane (B3 at q6, "
-        f"q5 and q2 flags; B6 at q6 and q2) and {hbg}x{wbg} gray plane (B4 "
-        f"at q0) bit-identical")
+        f"flags 0 and DIAGONALS; B4 and B6 at q0; B3 at q6 and q2 and B7 "
+        f"joint at q6, JOINT and q2 as a 4:4:4-sized chroma plane), "
+        f"{hbc}x{wbc} chroma plane (B3 at q6, q5 and q2 flags; B6 at q6, "
+        f"JOINT and q2) and {hbg}x{wbg} gray plane (B4 at q0) "
+        f"bit-identical")
 
     def timed(key, name, fn, plain, nbytes, ops, what, plain_reps=3):
         row = {"ms": cuda_ms(fn), "kernel_ms": kernel_ms(fn),
@@ -1249,16 +1276,31 @@ def check_range(torch, ext, tabs, flags, reb, wb, cuts, edges, want_pix):
     return err
 
 
+# B7's small shard grids (hb, wb, shards): wb under B4's 16-block tile,
+# wb = 1 and wb above it; prime row counts leave dead pad rows below the
+# bottom edge, so the last range's tile straddles it
+B7_SHAPES = ((7, 5, 2), (11, 9, 3), (13, 4, 4), (5, 13, 2), (9, 1, 2),
+             (10, 37, 3))
+
+
+def mid_tile_cuts(wb, last):
+    """Cuts of a shard's real blocks [wb, last) into ranges that start and
+    end inside B4's 16-block tiles: 3 blocks, a single block, 12 blocks
+    (shorter than a tile) and the rest, from wb + 16 (clipped at last)."""
+    return sorted({min(c, last) for c in (wb, wb + 3, wb + 4, wb + 16, last)})
+
+
 def phase_b7_vs_plain(torch, stats):
     """B7 vs its plain version on every shard of small random planes: 2, 3
     and 4 shards over prime row counts (dead pad rows, the bottom edge
     mid-shard), every edge position (the top, the bottom, none), each
-    shard's real rows whole and split at the first, an interior and the
-    last row; ghost and dead rows random."""
+    shard's real rows whole, split at the first, an interior and the last
+    row, and split into ranges that start and end mid-tile (a single block,
+    one shorter than a tile); ghost and dead rows random."""
     rng = np.random.default_rng(13)
     n_cases = 0
     for flags, joint in RANGE_FLAG_SETS:
-        for hb, wb, n in ((7, 5, 2), (11, 9, 3), (13, 4, 4), (5, 13, 2)):
+        for hb, wb, n in B7_SHAPES:
             coef, pix, tabs = _random_case(rng, hb * wb, True)
             image2 = (to_dev(rng.integers(0, 256, (100, hb * wb)).astype(
                 np.int32)) if joint else None)
@@ -1272,7 +1314,8 @@ def phase_b7_vs_plain(torch, stats):
                 for cuts, reb, want_pix in (
                         ((wb, last), True, True),
                         (sorted({wb, 2 * wb, wb + real * wb // 2, real * wb,
-                                 last}), False, False)):
+                                 last}), False, False),
+                        (mid_tile_cuts(wb, last), True, True)):
                     err = check_range(torch, ext, tabs, flags, reb, wb, cuts,
                                       edges, want_pix)
                     key = range_key(flags, joint)
@@ -1280,9 +1323,10 @@ def phase_b7_vs_plain(torch, stats):
                                                     err)
                     n_cases += 1
     log(f"B7 vs plain: {n_cases} small shard cases bit-identical (flags "
-        f"{', '.join(FLAG_NAMES[f] for f, _ in RANGE_FLAG_SETS)}; hb x wb "
-        f"over n shards 7x5/2, 11x9/3, 13x4/4, 5x13/2; every shard, whole "
-        f"and split ranges, ghosts and dead rows random)")
+        f"{', '.join(FLAG_NAMES[f] for f, _ in RANGE_FLAG_SETS)}; (hb, wb, "
+        f"shards) in {B7_SHAPES}; every shard, whole, split at rows and "
+        f"split mid-tile (3, 1, 12 blocks and the rest); ghosts and dead "
+        f"rows random)")
 
 
 def phase_b7_full_shard(torch, img, stats, card, t3_rate):
@@ -1464,7 +1508,8 @@ def phase_sharded(torch, runs, card):
         dev_ms = cuda_ms(run)
         e2e_ms = host_ms(lambda: engine._try_smooth_sharded(img, opts,
                                                             devices))
-        busy, n_launch, by_kernel = device_breakdown(torch, run, dev_ms, card)
+        busy, n_launch, by_kernel = device_breakdown(torch, run, dev_ms, card,
+                                                     sharded=True)
         mp = img.width * img.height / 1e6
         log(f"sharded {name} {tag}: {img.width}x{img.height}, {r} shards "
             f"used, launches {counts}; bit-identical to the single-device "
@@ -1591,10 +1636,11 @@ def phase_golden_sharded(torch):
     return dict(cuda_solver.LAUNCHES)
 
 
-def device_breakdown(torch, run, dev_ms, card, window="device run"):
+def device_breakdown(torch, run, dev_ms, card, window="device run",
+                     sharded=False):
     """Kernel time by name over one run (torch.profiler), and the share
     of the ``dev_ms`` window the card was busy.  Returns the busy ms, the
-    kernel launches and the ms of each of B1-B6."""
+    kernel launches and the ms of each of B1-B7 (``kernel_label``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1616,18 +1662,34 @@ def device_breakdown(torch, run, dev_ms, card, window="device run"):
         f" kernel launches [{card}]; top:")
     for t, n, k in rows[:6]:
         log(f"    {t:.3f} ms x{n} {k[:90]}")
-    by_kernel = {
-        name: sum(r[0] for r in rows if marker in r[2])
-        for name, marker in (("B1", "idct_pix_kernel"),
-                             ("B2", "solve_rebalance_pix_kernel"),
-                             ("B3", "solve_joint_pix_kernel"),
-                             ("B4", "solve_lq_pix_kernel"),
-                             ("B5", "solve_rebalance_kernel"),
-                             ("B6 joint", "solve_fused_kernel<0"),
-                             ("B6 lq", "solve_fused_kernel<1"),
-                             ("B7", "solve_range_pix_kernel"))}
+    by_kernel = dict.fromkeys(("B1", "B2", "B3", "B4", "B5", "B6 joint",
+                               "B6 lq", "B7"), 0.0)
+    for t, _, key in rows:
+        label = kernel_label(key, sharded)
+        if label:
+            by_kernel[label] += t
     by_kernel["exchange"] = exchange
     return busy, sum(r[1] for r in rows), by_kernel
+
+
+def kernel_label(key, sharded):
+    """The B-number of a profiler kernel name, or None for the glue.  B7's
+    B2 and LOW_QUALITY forms are B2's and B4's kernels over a block range:
+    in a sharded run, which launches no B2 or B4, they count as B7.  The
+    one-thread joint body runs B6-joint (given halos) and B7-joint."""
+    given = "true>" in key or "(bool)1>" in key
+    for marker, label in (("idct_pix_kernel", "B1"),
+                          ("solve_joint_thread_kernel",
+                           "B6 joint" if given else "B7"),
+                          ("solve_rebalance_pix_kernel",
+                           "B7" if sharded else "B2"),
+                          ("solve_lq_kernel",
+                           "B6 lq" if given else "B7" if sharded else "B4"),
+                          ("solve_joint_kernel", "B6 joint" if given else "B3"),
+                          ("solve_rebalance_kernel", "B5")):
+        if marker in key:
+            return label
+    return None
 
 
 def phase_transcode(torch, card):

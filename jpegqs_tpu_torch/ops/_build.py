@@ -106,8 +106,9 @@ def build() -> str:
 def ptxas_report(log_text: str) -> list:
     """nvcc's ``-Xptxas -v`` report per kernel instantiation, in the order
     compiled: dicts with ``name`` (``kernel<args>``, demangled far enough
-    to tell the instantiations apart), ``registers``, ``spill_stores``,
-    ``spill_loads`` (bytes) and ``smem`` (static shared memory, bytes)."""
+    to tell the instantiations apart; int and bool arguments as numbers),
+    ``registers``, ``spill_stores``, ``spill_loads`` (bytes) and ``smem``
+    (static shared memory, bytes)."""
     rows = []
     for entry in log_text.split("Compiling entry function '")[1:]:
         mangled = entry.split("'")[0]
@@ -117,9 +118,9 @@ def ptxas_report(log_text: str) -> list:
             ident = mangled[pos:pos + int(m.group())]
             pos += len(ident)
             if ident.endswith("_kernel"):
-                args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
+                args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
                 name = ident + ("<" + ",".join(re.findall(
-                    r"Li(\d+)E", args.group(1))) + ">" if args else "")
+                    r"L[ib](\d+)E", args.group(1))) + ">" if args else "")
                 break
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", entry)

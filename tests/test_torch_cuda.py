@@ -159,17 +159,21 @@ def test_solve_rebalance_chunks_on_card(cuda, r0, n, flags):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# block slices [s0, s1) of the 9x13 plane: its rows 0-8, 4-6 and 8, and
+# slices that start and end inside a 16-block tile of B6-lq (37, 17 and 1
+# blocks: no multiple of 16)
 @pytest.mark.cuda
-@pytest.mark.parametrize("r0,n", [(0, 9), (4, 3), (8, 1)])
+@pytest.mark.parametrize("s0,s1", [(0, 117), (52, 91), (104, 117), (3, 40),
+                                   (100, 117), (5, 6)])
 @pytest.mark.parametrize("flags,joint", [
     (JOINT_YUV | DIAGONALS, True), (JOINT_YUV, True),
     (JOINT_YUV | LOW_QUALITY | DIAGONALS, True),
     (LOW_QUALITY | DIAGONALS, False)])
-def test_solve_fused_chunks_on_card(cuda, r0, n, flags, joint):
-    """B6 vs its plain version on a row chunk of the whole plane's halos
-    (and image2), rebalance and pixels on and off."""
+def test_solve_fused_chunks_on_card(cuda, s0, s1, flags, joint):
+    """B6 vs its plain version on a row chunk or block slice of the whole
+    plane's halos (and image2), rebalance and pixels on and off."""
     coef, _, halo, image2, tabs, wb = _chunk_inputs(cuda, 5 + flags, joint)
-    s = slice(r0 * wb, (r0 + n) * wb)
+    s = slice(s0, s1)
     tab = (None if flags & LOW_QUALITY
            else cuda_solver.solver_tables(flags, cuda))
     i2 = None if image2 is None else image2[:, s]
@@ -225,40 +229,82 @@ def test_progress_run_launches(cuda):
     assert all(np.array_equal(a, b) for a, b in zip(res.coefs, plain.coefs))
 
 
+# grids (hb, wb): rows narrower than B4's 16-block tile, one block wide,
+# and wider than a tile
 @pytest.mark.cuda
+@pytest.mark.parametrize("hb,wb", [(11, 7), (9, 1), (6, 37)])
 @pytest.mark.parametrize("flags,joint", [
     (0, False), (DIAGONALS, False), (JOINT_YUV | DIAGONALS, True),
     (JOINT_YUV, True), (JOINT_YUV | LOW_QUALITY | DIAGONALS, True),
     (LOW_QUALITY | DIAGONALS, False)])
-def test_solve_range_on_card(cuda, flags, joint):
-    """B7 vs its plain version on random block ranges of an 11x7 grid with
-    random edges (a range that starts in the first row has its top edge
-    there, one that ends in the last row its bottom edge), rebalance and
-    pixels on and off."""
-    hb, wb = 11, 7
+def test_solve_range_on_card(cuda, hb, wb, flags, joint):
+    """B7 vs its plain version on block ranges of a grid with given edges:
+    ranges that start and end inside a 16-block tile (wb + 3 on), a single
+    block, one shorter than a tile, one ending at a bottom edge above the
+    last row (its tile reaches into the rows below, which no block may
+    read), and random ranges with random edges (a range that starts in the
+    first row has its top edge there, one that ends in the last row its
+    bottom edge); rebalance and pixels on and off."""
     S = hb * wb
-    coef, pix, tabs = _inputs(hb, wb, 40 + flags, cuda)
-    rng = np.random.default_rng(flags)
+    coef, pix, tabs = _inputs(hb, wb, 40 + flags + wb, cuda)
+    rng = np.random.default_rng(flags + wb)
     image2 = (torch.from_numpy(rng.integers(0, 256, (100, S)).astype(
         np.int32)).to(cuda) if joint else None)
     tab = (None if flags & LOW_QUALITY
            else cuda_solver.solver_tables(flags, cuda))
+    ranges = [(wb + 3, S - wb, (-1, -1)), (wb + 3, wb + 4, (-1, -1)),
+              (wb + 1, min(wb + 13, S - wb), (-1, -1)),
+              (wb, (hb - 2) * wb, (1, hb - 3))]
     for _ in range(8):
         b0 = int(rng.integers(0, S))
         b1 = int(rng.integers(b0 + 1, S + 1))
         top = 0 if b0 < wb else int(rng.integers(-1, hb))
         bot = hb - 1 if b1 > S - wb else int(rng.integers(-1, hb))
+        ranges.append((b0, b1, (top, bot)))
+    for b0, b1, edges in ranges:
         for reb, want_pix in ((True, True), (False, False)):
             got = [torch.zeros_like(coef) for _ in range(2)]
             want = [torch.zeros_like(coef) for _ in range(2)]
             cuda_solver.solve_range_pix(coef, pix, image2, *tabs, flags, reb,
-                                        wb, b0, b1, (top, bot), got[0],
+                                        wb, b0, b1, edges, got[0],
                                         got[1] if want_pix else None)
             planar.solve_range_pix(coef, pix, image2, *tabs, tab, flags, reb,
-                                   wb, b0, b1, (top, bot), want[0],
+                                   wb, b0, b1, edges, want[0],
                                    want[1] if want_pix else None)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1],
                                                                 want[1])
+
+
+# 41,000 blocks: 321 CTAs of 128, above two an SM on a 132-SM card, where
+# the joint passes of B6 and B7 take B3's design (below, the one-thread
+# body the small cases above run)
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [JOINT_YUV | DIAGONALS,
+                                   JOINT_YUV | LOW_QUALITY | DIAGONALS])
+def test_joint_passes_on_large_launches_on_card(cuda, flags):
+    """B6-joint and B7-joint vs their plain versions on a launch of many
+    CTAs an SM."""
+    hb, wb = 205, 200
+    S = hb * wb
+    coef, pix, tabs = _inputs(hb, wb, 60 + flags, cuda)
+    rng = np.random.default_rng(flags)
+    image2 = torch.from_numpy(rng.integers(0, 256, (100, S)).astype(
+        np.int32)).to(cuda)
+    halo = planar.blocks_halo10(pix.reshape(8, 8, S), hb, wb).reshape(100, S)
+    tab = (None if flags & LOW_QUALITY
+           else cuda_solver.solver_tables(flags, cuda))
+    got = cuda_solver.solve_fused(coef, halo, image2, *tabs, flags, True,
+                                  True)
+    want = planar.solve_fused(coef, halo, image2, *tabs, tab, flags, True,
+                              True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = [torch.zeros_like(coef) for _ in range(2)]
+    want = [torch.zeros_like(coef) for _ in range(2)]
+    cuda_solver.solve_range_pix(coef, pix, image2, *tabs, flags, True, wb, 0,
+                                S, (0, hb - 1), *got)
+    planar.solve_range_pix(coef, pix, image2, *tabs, tab, flags, True, wb, 0,
+                           S, (0, hb - 1), *want)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda

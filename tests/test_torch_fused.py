@@ -196,7 +196,7 @@ def test_low_quality_range_and_shrink_vs_jax():
 def test_lq_diagonal_weight_bits():
     """The LQ shrink's diagonal weight is the fp32 product
     2 * sqrt(fp32(0.5)), bits 0x3FB504F3 -- the constant the CUDA
-    kernel carries as a bit pattern (csrc/solver.cu lq_fblock)."""
+    kernel carries as a bit pattern (csrc/solver.cu solve_lq_kernel)."""
     assert np.float32(planar.LQ_C1).view(np.uint32) == 0x3FB504F3
     c1 = np.float32(np.float32(2.0) * np.sqrt(np.float32(0.5)))
     assert np.float32(planar.LQ_C1) == c1

@@ -10,14 +10,21 @@ the CPU: numpy and torch only, no JAX.
 - (c) a torch emulation of the kernel's maps -- the 16-block CTA tile, the
   staged window (each tile block's rows with the row above and the row
   below, the tile's two outside neighbours' columns), the halo rows built
-  from it with each block's own edge flags, the lq_range fold handed from
+  from it with each block's own edge flags, the range fold handed from
   lane to lane, the lane-split integer sum and rebalance sums -- gives
   ``planar.solve_fused_pix``'s LOW_QUALITY output.  What the kernel does
-  not stage is NaN here, so a read of it shows;
+  not stage is NaN here, so a read of it shows.  Two more sources, as
+  ``solve_lq_kernel`` takes them: a block range of a shard (B7-lq: tiles
+  from b0, not a multiple of 16, the edges from the descriptor's
+  (top_row, bot_row), ghost and dead rows NaN where an edge forbids their
+  reading) against ``planar.solve_range_pix``, and given halos (B6-lq:
+  each block's 100 rows staged through the kernel's map, from column-slice
+  views of n blocks, n no multiple of 16) against ``planar.solve_fused``;
 - (d) the staging map covers the tile once (thread t: block j, rows k0,
   k0 + 8, ..., k0 + 56), a warp taking 8 consecutive blocks of 4
   consecutive planar rows at each step, and the shared-memory pitches give
-  a lane group's row and column accesses 32 different banks.
+  a lane group's row and column accesses 32 different banks; so does the
+  given halo's padded row pitch.
 
 The design's optional pair-symmetry lever is not built, so nothing here
 tests it.  The kernel's constants are read from solver.cu.
@@ -50,7 +57,8 @@ def _constants():
     lanes, pitch = val["kLqLanes"], val["kLqPitch"]
     return {"threads": val["kThreads"], "lanes": lanes,
             "tile": val["kThreads"] // lanes, "pitch": pitch,
-            "mat": 8 * pitch, "halo": val["kLqHalo"]}
+            "mat": 8 * pitch, "halo": val["kLqHalo"], "row": val["kLqRow"],
+            "given": val["kLqGiven"]}
 
 
 K = _constants()
@@ -111,19 +119,21 @@ def test_difference_of_converted_pixels_is_exact():
 # (c) the kernel's maps, emulated
 
 
-def staged_window(pix, wb):
-    """f32[ntiles, TILE + 2, 10, 8]: for tile T and its block jj (index
-    jj + 1, jj = -1..TILE) row 0 the block above's row 7, rows 1..8 the
-    block's own, row 9 the block below's row 0; of jj = -1 only column 7,
-    of jj = TILE only column 0; NaN where the kernel stages nothing or
-    reads past the plane."""
+def staged_window(pix, wb, b0=0, b1=None):
+    """f32[ntiles, TILE + 2, 10, 8]: for tile T (blocks b0 + 16 T ..., up
+    to b1) and its block jj (index jj + 1, jj = -1..TILE) row 0 the block
+    above's row 7, rows 1..8 the block's own, row 9 the block below's row
+    0; of jj = -1 only column 7, of jj = TILE only column 0; NaN where the
+    kernel stages nothing or reads past the plane (and where pix, given as
+    floats, is NaN)."""
     S = pix.shape[1]
-    ntiles = -(-S // TILE)
+    b1 = S if b1 is None else b1
+    ntiles = -(-(b1 - b0) // TILE)
     T = np.arange(ntiles)[:, None, None, None]
     jj = np.arange(-1, TILE + 1)[None, :, None, None]
     R = np.arange(10)[None, None, :, None]
     c = np.arange(8)[None, None, None, :]
-    base = T * TILE + jj
+    base = b0 + T * TILE + jj
     blk = np.where(R == 0, base - wb, np.where(R == 9, base + wb, base))
     k = np.where(R == 0, 56 + c, np.where(R == 9, c, (R - 1) * 8 + c))
     staged = (((jj >= 0) & (jj < TILE)) | ((jj == -1) & (c == 7))
@@ -134,24 +144,36 @@ def staged_window(pix, wb):
     return torch.where(torch.from_numpy(ok), vals, torch.tensor(np.nan))
 
 
-def halo_from_window(v, S, hb, wb):
-    """f32[10, 10, S]: each block's halo rows built from the staged window
-    as its lanes do: row R of the block's matrix (at a flagged top / bottom
-    edge its own first / last row), the ring from the neighbours' row R or
-    the block's own at a flagged side edge."""
-    b = torch.arange(S)
-    T, j = b // TILE, b % TILE
+def position_edges(b, hb, wb):
+    """B4's edge flags (top, bottom, left, right) of blocks b: from each
+    block's place in its own hb x wb image."""
     loc = b % (hb * wb)
     by, bx = loc // wb, loc % wb
-    et, ed, el, er = by == 0, by == hb - 1, bx == 0, bx == wb - 1
+    return by == 0, by == hb - 1, bx == 0, bx == wb - 1
+
+
+def descriptor_edges(b, wb, edges):
+    """B7's edge flags of blocks b: the rows of the descriptor's
+    (top_row, bot_row), the grid's columns."""
+    by, bx = b // wb, b % wb
+    return by == edges[0], by == edges[1], bx == 0, bx == wb - 1
+
+
+def halo_from_window(v, b, b0, flags):
+    """f32[10, 10, n]: the halos of blocks b (of tiles from b0) built from
+    the staged window as their lanes do: row R of the block's matrix (at a
+    flagged top / bottom edge its own first / last row), the ring from the
+    neighbours' row R or the block's own at a flagged side edge."""
+    T, j = (b - b0) // TILE, (b - b0) % TILE
+    et, ed, el, er = flags
     rows = []
     for hr in range(10):
         R = torch.where(et & (hr == 0), 1, torch.where(ed & (hr == 9), 8, hr))
-        own = v[T, j + 1, R]                                     # [S, 8]
+        own = v[T, j + 1, R]                                     # [n, 8]
         left = torch.where(el, own[:, 0], v[T, j, R, 7])
         right = torch.where(er, own[:, 7], v[T, j + 2, R, 0])
         rows.append(torch.cat([left[:, None], own, right[:, None]], 1))
-    return torch.stack(rows).permute(0, 2, 1)                    # [10, 10, S]
+    return torch.stack(rows).permute(0, 2, 1)                    # [10, 10, n]
 
 
 def range_lanes(coef, div):
@@ -212,15 +234,58 @@ def rebalance_lanes(coef, div, x1, qshr):
                        add, coef)
 
 
-def emulate_b4(coef, pix, div, x1, qshr, hb, wb, do_rebalance):
-    S = coef.shape[1]
-    halo = halo_from_window(staged_window(pix, wb), S, hb, wb)
+def lanes_pass(coef, halo, div, x1, qshr, do_rebalance):
+    """The lanes' work on blocks with their fp32 halos f32[10, 10, n]:
+    (coefficients, pixels) int32[64, n]."""
     assert not torch.isnan(halo).any(), "a lane read a value never staged"
+    n = coef.shape[1]
     fb = shrink_lanes(halo, range_lanes(coef, div))
     out = planar.fdct_clamp_p(fb, coef, div, x1, qshr)
     if do_rebalance:
         out = rebalance_lanes(out, div, x1, qshr)
-    return out, idct_islow(out.reshape(8, 8, S)).reshape(64, S), halo
+    return out, idct_islow(out.reshape(8, 8, n)).reshape(64, n)
+
+
+def emulate_b4(coef, pix, div, x1, qshr, hb, wb, do_rebalance):
+    b = torch.arange(coef.shape[1])
+    halo = halo_from_window(staged_window(pix, wb), b, 0,
+                            position_edges(b, hb, wb))
+    return (*lanes_pass(coef, halo, div, x1, qshr, do_rebalance), halo)
+
+
+def emulate_b7(coef, pix, div, x1, qshr, wb, b0, b1, edges, do_rebalance):
+    """B7-lq over blocks [b0, b1): pix may be floats with NaN in the rows
+    the edges forbid."""
+    b = torch.arange(b0, b1)
+    halo = halo_from_window(staged_window(pix, wb, b0, b1), b, b0,
+                            descriptor_edges(b, wb, edges))
+    return lanes_pass(coef[:, b0:b1], halo, div, x1, qshr, do_rebalance)
+
+
+def stage_given(halo):
+    """Given halos int32[100, n] (maybe a column-slice view) staged as
+    solve_lq_kernel<true> stages them, and read back as the lanes read
+    them: f32[10, 10, n].  Each CTA's shared array starts NaN; thread t
+    writes rows k = k0 + 8 i (k0 = t / 16) of block j = t % 16 at
+    j * kLqGiven + k + (k / 10) * (kLqRow - 10); lane ln of block j reads
+    rows ln .. ln + 2, ten words from j * kLqGiven + row * kLqRow."""
+    n = halo.shape[1]
+    G, P = K["given"], K["row"]
+    out = torch.empty((10, 10, n), dtype=F32)
+    t = np.arange(K["threads"])
+    j, k0 = t % TILE, t // TILE
+    for b0 in range(0, n, TILE):
+        v = torch.full((TILE * G,), np.nan, dtype=F32)
+        for i in range(13):
+            k = k0 + 8 * i
+            ok = (k < 100) & (b0 + j < n)
+            kk, jj = k[ok], j[ok]
+            v[torch.from_numpy(jj * G + kk + (kk // 10) * (P - 10))] = \
+                halo[torch.from_numpy(kk), torch.from_numpy(b0 + jj)].to(F32)
+        for jb in range(min(TILE, n - b0)):      # rows ln .. ln + 2
+            for R in range(10):
+                out[R, :, b0 + jb] = v[jb * G + R * P:jb * G + R * P + 10]
+    return out
 
 
 def _case(hb, wb, n, table, seed):
@@ -261,6 +326,56 @@ def test_emulated_maps_match_plain(hb, wb, n, table, reb):
     assert not torch.equal(got, coef)          # the pass moved something
     if table == "small":                       # some ranges below 128
         assert (planar.low_quality_range_p(coef, tabs[0]) < 128).any()
+
+
+# B7-lq's ranges of a shard's grid (hb rows with the ghosts, wb, b0, b1,
+# (top_row, bot_row)): tiles from b0 = wb + 3 (not a multiple of 16), a
+# single block, a range shorter than a tile, a one-block-wide grid, a grid
+# wider than a tile, and a bottom edge above dead rows that the last tile
+# reaches into
+RANGES = [(8, 5, 8, 30, (1, 5)), (7, 9, 12, 13, (-1, -1)),
+          (6, 7, 8, 20, (1, -1)), (9, 1, 2, 6, (1, 5)),
+          (5, 37, 40, 148, (-1, 3)), (9, 13, 13, 104, (1, 7))]
+
+
+@pytest.mark.parametrize("reb", [True, False])
+@pytest.mark.parametrize("hb,wb,b0,b1,edges", RANGES)
+def test_emulated_range_matches_plain(hb, wb, b0, b1, edges, reb):
+    torch.set_num_threads(1)
+    coef, pix, tabs = _case(hb, wb, 1, "random", hb * 100 + wb + b0)
+    S = hb * wb
+    # rows an edge forbids reading: above top_row, below bot_row
+    row = torch.arange(S) // wb
+    top, bot = edges
+    banned = (row < top) | ((row > bot) & (bot >= 0))
+    pixf = torch.where(banned[None], torch.tensor(np.nan), pix.to(F32))
+    got, got_pix = emulate_b7(coef, pixf, *tabs, wb, b0, b1, edges, reb)
+    want = [torch.zeros_like(coef) for _ in range(2)]
+    planar.solve_range_pix(coef, pix, None, *tabs, None, FLAGS, reb, wb, b0,
+                           b1, edges, *want)
+    assert torch.equal(got, want[0][:, b0:b1])
+    assert torch.equal(got_pix, want[1][:, b0:b1])
+
+
+# B6-lq's inputs: block slices [s0, s1) of a 117-block plane's halos and
+# coefficients as column-slice views: the whole plane, rows 4-6, and
+# slices that start and end inside a 16-block tile (37, 17 and 1 blocks)
+SLICES = [(0, 117), (52, 91), (3, 40), (100, 117), (5, 6)]
+
+
+@pytest.mark.parametrize("reb", [True, False])
+@pytest.mark.parametrize("s0,s1", SLICES)
+def test_emulated_given_matches_plain(s0, s1, reb):
+    torch.set_num_threads(1)
+    coef, pix, tabs = _case(9, 13, 1, "random", s0 * 7 + s1)
+    halo = torch.from_numpy(np.random.default_rng(s1).integers(
+        0, 256, (100, 117)).astype(np.int32))
+    c, h = coef[:, s0:s1], halo[:, s0:s1]
+    staged = stage_given(h)
+    assert torch.equal(staged.to(torch.int32), h.reshape(10, 10, -1))
+    got, got_pix = lanes_pass(c, staged, *tabs, reb)
+    want = planar.solve_fused(c, h, None, *tabs, None, FLAGS, reb, True)
+    assert torch.equal(got, want[0]) and torch.equal(got_pix, want[1])
 
 
 # ---------------------------------------------------------------------------
@@ -312,3 +427,24 @@ def test_lane_accesses_hit_distinct_banks():
             for addr in (j * H + (ln + dr) * P + 7,      # left ring
                          (j + 2) * H + (ln + dr) * P):   # right ring
                 assert len(set((addr % 32).tolist())) == 32
+
+
+def test_given_halo_accesses_hit_distinct_banks():
+    P, G = K["row"], K["given"]
+    assert P % 2 == 1 and P >= 10 and G % 16 == 8 and G >= 10 * P
+    # v, c, w, edge, tab
+    smem = 4 * (TILE * G + 2 * TILE * K["mat"] + TILE + 3 * 64)
+    assert smem == 17728 and smem <= 48 * 1024     # static shared memory
+    for warp in range(K["threads"] // 32):
+        t = np.arange(32 * warp, 32 * warp + 32)
+        j, ln = t // LANES, t % LANES
+        for dr in range(3):                              # halo rows
+            for q in range(10):
+                addr = j * G + (ln + dr) * P + q
+                assert len(set((addr % 32).tolist())) == 32
+        # the staging stores: thread t, rows k0 + 8 i of block t % 16
+        jb, k0 = t % TILE, t // TILE
+        for i in range(13):
+            k = k0 + 8 * i
+            addr = (jb * G + k + (k // 10) * (P - 10))[k < 100]
+            assert not addr.size or np.bincount(addr % 32).max() <= 4
