@@ -12,8 +12,8 @@
 // planar int32[64, B] -- row k (natural position / pixel r*8+c) has stride B,
 // so thread b of a warp reads address k*B + b and neighbouring threads read
 // neighbouring words.  One thread owns one 8x8 block for the whole pass,
-// except in the LOW_QUALITY passes (B4 and its B6/B7 forms), where 8 lanes
-// of a warp share a block.
+// except in the LOW_QUALITY passes (B4 and its B6/B7 forms) and B5's lane
+// body, where 8 lanes of a warp share a block.
 // The solver tables are f32[64, pitch]: a row holds the NT weights of one
 // coefficient, padded with zeros to a multiple of four (pitch), so a row
 // reads as float4.
@@ -414,7 +414,8 @@ __device__ __forceinline__ void halo_borders(const H& h, float (&v)[96]) {
 //    [32, .] or 10x10 halos [100, .], read at the block's own index, no
 //    edges.  A kernel body reads one or the other (template GIVEN).  The
 //    joint passes of B6 and B7 have a second, one-thread body for
-//    launches of few CTAs an SM (solve_joint_thread_kernel).
+//    launches of few CTAs an SM (solve_joint_thread_kernel), B5 a lane
+//    body for them (solve_borders_lanes_kernel).
 // A pass runs over blocks [b0, b1), each array with its row stride ld_*.
 // Pixel sources: every ld_* is S, the outputs are whole-size planes written
 // at the block's own index (B7's ranges fill one output), and b1 <= S.
@@ -452,19 +453,23 @@ __device__ __forceinline__ void pix_edges(const PassArgs& a, int b, bool& t,
 }
 
 // ---------------------------------------------------------------------------
-// B2, and B7's B2 form: one resident solver pass = border lines + k=63..1
-// sweep + rebalance + emitted pixels.
+// B2, B7's B2 form and B5: one solver pass = the block's four border lines
+// + k=63..1 sweep + rebalance + emit.  The border lines come from the
+// previous pass's pixels (B2; B7 over a block range with the shard's edges)
+// or are given (B5, GIVEN: the progress path's materialised lines).
 // Replaces jpegqs_tpu/ops/pallas_solver.py solve_rebalance_pix
 // (_solve_tiled aux_mode="pix": _bord_from_pix, _diffs_tile, the _GROUPS
-// sweep of _solve_kernel, _rebalance_tile, emit_pix) and, over a block
+// sweep of _solve_kernel, _rebalance_tile, emit_pix), solve_rebalance
+// (aux_mode="halo", preamble None: the [32, B] borders) and, over a block
 // range with the descriptor's edges, _solve_tiled(tile_range=...) as the
 // sharded loop calls it (see B7 below).
 // Bound on this card: fp32 operations -- 9 non-FMA fp32 ops per term of
 // non-zero table weight per block per pass (7,648 of the 63 x NT terms at
 // NT = 144, 13,308 at NT = 242 with DIAGONALS), against ~1 KB of
-// coefficient/pixel traffic per block.  An SM sub-partition issues one warp
-// instruction a clock, so the bound is the issue slots of those 9; whatever
-// else a term issues, and warps waiting on loads, keep the kernel from it.
+// coefficient/pixel traffic per block (B5: (64 + 32 + 64) x 4 B).  An SM
+// sub-partition issues one warp instruction a clock, so the bound is the
+// issue slots of those 9; whatever else a term issues, and warps waiting on
+// loads, keep the kernel from it.
 // Design: one thread per block, 128 threads a CTA, at most 128 registers,
 // so 4 CTAs (16 warps) share an SM.  Per term the sweep issues the 9
 // operations, one fp32 subtract for the diff and a quarter of a float4
@@ -479,29 +484,40 @@ __device__ __forceinline__ void pix_edges(const PassArgs& a, int b, bool& t,
 // cap ptxas spills 8 bytes (the block index, one border value).  Folding two
 // steps of a refresh group per pass, border lines in shared memory and a
 // 168-register build were measured and did not pay (PERF.md, Findings).
-// B7's B2 form is this kernel over a block range with the shard's edges.
-// pix_out never aliases pix_in: neighbours' previous-pass pixels are read
-// while others write.
+// GIVEN changes the inputs only: the 32 given lines [32, ld_nbhd] (top,
+// bottom, left, right) read at the block's own index, the coefficients at
+// row stride ld_coef (a row chunk's inputs are column-slice views of whole
+// planes), b0 = 0 and the outputs contiguous [64, b1].  B5's launches of few
+// CTAs an SM take solve_borders_lanes_kernel (below) instead.  An output
+// never aliases an input: neighbours' previous-pass pixels are read while
+// others write.
 // ---------------------------------------------------------------------------
-template <int NT>
+template <int NT, bool GIVEN>
 __global__ void __launch_bounds__(kThreads, 4)
-solve_rebalance_pix_kernel(const PassArgs a) {
+solve_borders_kernel(const PassArgs a) {
   __shared__ int coef_smem[64 * kThreads];
   const int b = a.b0 + blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.b1) return;
+  // the row strides: one plane size S for the pixel sources
   const size_t S = (size_t)a.ld_out;
+  const size_t ld_coef = GIVEN ? (size_t)a.ld_coef : S;
   const int* __restrict__ div = a.div;
   const int* __restrict__ x1 = a.x1;
   const int* __restrict__ qshr = a.qshr;
 
   const SmemCol<int> c{coef_smem + threadIdx.x};
 #pragma unroll
-  for (int k = 0; k < 64; ++k) c[k] = a.coef_in[k * S + b];
+  for (int k = 0; k < 64; ++k) c[k] = a.coef_in[k * ld_coef + b];
 
   float v[96];
-  bool t, d, l, r;
-  pix_edges(a, b, t, d, l, r);
-  load_borders(a.nbhd, S, b, a.wb, t, d, l, r, v);
+  if constexpr (GIVEN) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) v[64 + j] = a.nbhd[j * (size_t)a.ld_nbhd + b];
+  } else {
+    bool t, d, l, r;
+    pix_edges(a, b, t, d, l, r);
+    load_borders(a.nbhd, S, b, a.wb, t, d, l, r, v);
+  }
 
   sweep<NT>(c, v, div, x1, qshr, a.tab, a.pitch);
   if (a.do_rebalance) rebalance(c, div, x1, qshr);
@@ -1256,47 +1272,188 @@ solve_lq_kernel(const PassArgs a) {
 // B5, 10x10 halos int32[100, .] (row-major) for B6.  A block reads its
 // neighbourhood at its own index, nbhd[j * ld_nbhd + b]: no edge logic.
 // The inputs may be row chunks of whole planes (PassArgs); the outputs are
-// contiguous [64, n].  B6 is solve_joint_kernel<NT, true> (JOINT_YUV; on
-// launches of at most two CTAs an SM solve_joint_thread_kernel<NT, true>,
-// see B7) and solve_lq_kernel<true> (LOW_QUALITY) above.
+// contiguous [64, n].  B5 is solve_borders_kernel<NT, true> (B2's body; on
+// launches of few CTAs an SM solve_borders_lanes_kernel<NT> below), B6
+// solve_joint_kernel<NT, true> (JOINT_YUV; on launches of at most two CTAs
+// an SM solve_joint_thread_kernel<NT, true>, see B7) and
+// solve_lq_kernel<true> (LOW_QUALITY) above.
 // Replace jpegqs_tpu/ops/pallas_solver.py solve_rebalance (_solve_tiled
-// aux_mode="halo", preamble None: the [32, B] borders, the _GROUPS sweep of
-// _solve_kernel, _rebalance_tile) and solve_fused (aux_mode="halo",
+// aux_mode="halo", preamble None) and solve_fused (aux_mode="halo",
 // preamble "joint" / "lq").
-// B5's bound on this card: fp32 operations, as B2 -- 9 per term of non-zero
-// table weight per block (7,648 terms at NT 144, 13,308 at NT 242) against
-// (64 + 32 + 64) x 4 B of traffic per block.  B6's: with the sweep (JOINT
-// at q5/q6) fp32 operations, as B3; without it (JOINT at q1/q2, LQ at
-// q0-q2) bytes -- (64 + 100 + 100 + 64) x 4 B per block under JOINT, 100
-// ints fewer under LQ.
-// B5's design: one thread per block with its coefficients in a local array
-// (not B2's shared memory); the border lines are 32 planar loads; the
-// sweep, rebalance and emit are B2's device functions.
+// B6's bound on this card: with the sweep (JOINT at q5/q6) fp32
+// operations, as B3; without it (JOINT at q1/q2, LQ at q0-q2) bytes --
+// (64 + 100 + 100 + 64) x 4 B per block under JOINT, 100 ints fewer under
+// LQ.  B5's: as B2.
+//
+// B5's lane body, for launches of few CTAs an SM (the PRECISE_PROGRESS row
+// chunks): there B2's body takes one thread's chain of 63 sweep steps,
+// whatever the launch's size, and most of an SM's issue slots are idle.
+// The steps of a refresh group are independent -- each reads the pixels
+// of the group's start and changes only its own coefficient -- so the
+// lane body gives a block kSwLanes = 8 lanes of a warp (16 blocks a CTA)
+// and runs a group's steps side by side, lane l the group's step l (the 14
+// groups hold 1 to 8 steps): its chain is 14 steps long, not 63.  Each
+// lane folds its step exactly as sweep does (fold_terms: the same terms in
+// the same order, the same zero-weight classes skipped), from its own copy
+// of the block's fp32 pixels and border lines (v[96], registers), and
+// applies its delta to the block's coefficients, an 8x8 matrix in shared
+// memory that the group's lanes share (each its own coefficient).  At a
+// group start the warp refreshes when any of its blocks changed (the IDCT
+// of unchanged coefficients gives the pixels they already have): lane r
+// takes column r, then row r, through the block's scratch matrix, and
+// every lane reads the 64 pixels back (__syncwarp); so does the emit.  The
+// rebalance is the LOW_QUALITY kernel's (rebalance_lanes: lane r owns
+// coefficient row r).  A lane reads its step's table row (8 rows a warp,
+// L1-resident).  At most 168 registers: v[96] without a spill, 3 CTAs
+// (48 blocks) an SM; at 128 registers and 4 CTAs ptxas spills 12 B and the
+// small launches were up to 1.6x slower (PERF.md, Findings).  Per block it
+// issues about twice B2's instructions (the groups fill 63 of 14 x 8
+// lane-steps, and a warp runs a class of terms when any of its lanes folds
+// it) and holds 8 copies of the block's state, so it pays only up to
+// about 1.25 CTAs of 128 blocks an SM (cuda_solver.use_lane_body; PERF.md,
+// Findings: at NT 242 4.7x B2's body at a quarter of one, 1.5x at one,
+// 0.76x at two).  A first lane split -- the terms of one
+// step over the lanes, their products through shared memory to two
+// folding lanes -- was slower than this body at every size (its chain
+// stayed 63 steps long, and its shared-memory traffic grew with the
+// launch).  Blocks of the last tile past b1 compute on zeros and store
+// nothing (they take part in the warp's votes and shuffles).
 // ---------------------------------------------------------------------------
+constexpr int kSwLanes = 8;                     // lanes a block
+constexpr int kSwBlocks = kThreads / kSwLanes;  // 16 blocks a CTA
+constexpr int kSwPix = 68;  // a block's pixels: 4 banks apart, float4 rows
+static_assert(kSwLanes == kLqLanes && kSwPix >= 64 && kSwPix % 32 == 4,
+              "B5's lane body shares the LOW_QUALITY kernel's lane helpers");
+
+// The first step k of each refresh group (c_refresh), and 63.
+__constant__ int c_group[15] = {0,  1,  3,  6,  10, 15, 21, 28,
+                                36, 43, 49, 54, 58, 61, 63};
+
+// B5's lane body's shared memory per CTA (13,568 bytes): per block the
+// coefficients, the IDCT scratch matrix and the pixels.
+struct SweepLanesSmem {
+  int c[kSwBlocks * kLqMat];
+  int w[kSwBlocks * kLqMat];
+  float px[kSwBlocks * kSwPix];
+};
+
+// The IDCT of the block's coefficient matrix cj on its lanes (column ln,
+// then row ln, through the scratch matrix wj) into the pixels pj, which
+// every lane then reads into v[0..63].
+__device__ __forceinline__ void lanes_pixels(const int* cj, int* wj,
+                                             float* pj, int ln,
+                                             float (&v)[96]) {
+  __syncwarp();  // the coefficient updates; the last pixel reads
+  u32 x[8], o[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) x[r] = (u32)cj[r * kLqPitch + ln];
+  islow_pass(x, o);
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    wj[r * kLqPitch + ln] = (int)(o[r] + 1024u) >> 11;
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < 8; ++q) x[q] = (u32)wj[ln * kLqPitch + q];
+  islow_pass(x, o);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int p = (int)(o[q] + (257u << 17)) >> 18;
+    pj[ln * 8 + q] = (float)(p < 0 ? 0 : (p > 255 ? 255 : p));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k4 = 0; k4 < 64; k4 += 4) {
+    const float4 p4 = *reinterpret_cast<const float4*>(pj + k4);
+    v[k4] = p4.x;
+    v[k4 + 1] = p4.y;
+    v[k4 + 2] = p4.z;
+    v[k4 + 3] = p4.w;
+  }
+}
+
 template <int NT>
-__global__ void __launch_bounds__(kThreads)
-solve_rebalance_kernel(const PassArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= a.b1) return;
+__global__ void __launch_bounds__(kThreads, 3)
+solve_borders_lanes_kernel(const PassArgs a) {
+  __shared__ SweepLanesSmem sm;
+  const int t = threadIdx.x;
+  const int jb = t / kSwLanes, ln = t % kSwLanes;
+  const int b = blockIdx.x * kSwBlocks + jb;  // given sources: b0 = 0
+  const bool in = b < a.b1;
+  const size_t ld_coef = (size_t)a.ld_coef, ld_nbhd = (size_t)a.ld_nbhd;
+  const size_t ld_out = (size_t)a.ld_out;
   const int* __restrict__ div = a.div;
   const int* __restrict__ x1 = a.x1;
   const int* __restrict__ qshr = a.qshr;
+  int* cj = sm.c + jb * kLqMat;
+  int* wj = sm.w + jb * kLqMat;
+  float* pj = sm.px + jb * kSwPix;
 
-  int c[64];
+  // lane ln's coefficient row; every lane the 32 border values
 #pragma unroll
-  for (int k = 0; k < 64; ++k) c[k] = a.coef_in[(size_t)k * a.ld_coef + b];
+  for (int q = 0; q < 8; ++q)
+    cj[ln * kLqPitch + q] = in ? a.coef_in[(ln * 8 + q) * ld_coef + b] : 0;
   float v[96];
 #pragma unroll
-  for (int j = 0; j < 32; ++j) v[64 + j] = a.nbhd[(size_t)j * a.ld_nbhd + b];
+  for (int j = 0; j < 32; ++j)
+    v[64 + j] = in ? (float)a.nbhd[j * ld_nbhd + b] : 0.0f;
 
-  sweep<NT>(c, v, div, x1, qshr, a.tab, a.pitch);
-  if (a.do_rebalance) rebalance(c, div, x1, qshr);
-  emit_block(c, a.coef_out, a.pix_out, (size_t)a.ld_out, b);
+  bool need = true;  // this lane changed a coefficient since the refresh
+  for (int g = 0; g < 14; ++g) {
+    const int k0 = c_group[g];
+    if (__any_sync(0xffffffffu, need)) {
+      lanes_pixels(cj, wj, pj, ln, v);
+      need = false;
+    }
+    if (ln < c_group[g + 1] - k0) {  // step k0 + ln: sweep's step body
+      const int i = c_iseq[k0 + ln];
+      const float rng = (float)(div[i] * 2);
+      const float* tr = a.tab + i * a.pitch;
+      float a2 = 0.0f, a3 = 0.0f;
+      if (i & 7) fold_terms<0, 56>(v, tr, rng, a2, a3);     // horizontal
+      fold_terms<56, 88>(v, tr, rng, a2, a3);               // border
+      if (i > 7) fold_terms<88, 144>(v, tr, rng, a2, a3);   // vertical
+      if constexpr (NT > 144) fold_terms<144, NT>(v, tr, rng, a2, a3);
+      const int delta = c_cast(roundf(__fdiv_rn(a2, a3)));  // half away
+      if (delta != 0) {
+        int* ci = cj + (i >> 3) * kLqPitch + (i & 7);
+        const int coef1 = *ci;
+        const int dv = div[i];
+        const int a0 = orig_coef(coef1, dv, x1[i], qshr[i]);
+        const int nc =
+            interval_clamp((int)((u32)coef1 - (u32)delta), a0, dv);
+        if (nc != coef1) {
+          *ci = nc;
+          need = true;
+        }
+      }
+    }
+  }
+  __syncwarp();
+
+  int c[8];
+  int* crow = cj + ln * kLqPitch;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) c[q] = crow[q];
+  if (a.do_rebalance) rebalance_lanes(c, ln, div, x1, qshr);
+  if (in) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) a.coef_out[(ln * 8 + q) * ld_out + b] = c[q];
+  }
+  if (a.pix_out != nullptr) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) crow[q] = c[q];
+    lanes_pixels(cj, wj, pj, ln, v);
+    if (in) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        a.pix_out[(ln * 8 + q) * ld_out + b] = (int)v[ln * 8 + q];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
 // B7: one resident pass of B2, B3 or B4 over blocks [b0, b1) only, with the
-// edges given by the caller: solve_rebalance_pix_kernel<NT>,
+// edges given by the caller: solve_borders_kernel<NT, false>,
 // solve_joint_kernel<NT, false> and solve_lq_kernel<false> above, with
 // period = S and the shard's top_row / bot_row.
 // Replaces jpegqs_tpu/ops/pallas_solver.py _solve_tiled(tile_range=(t0, t1))
@@ -1498,10 +1655,10 @@ cudaError_t launch_joint(const PassArgs& a, bool by_size, cudaStream_t s) {
 
 // One pass of preamble pre (kBorders: B2's; kJoint; kLowQuality) over
 // blocks [a.b0, a.b1), a.b1 > a.b0; nt 0 (no sweep), 144 or 242; by_size
-// as launch_joint.
+// as launch_joint; lanes (B5: GIVEN, kBorders) B5's lane body.
 template <bool GIVEN>
 cudaError_t launch_pass(const PassArgs& a, int pre, int nt, bool by_size,
-                        cudaStream_t s) {
+                        bool lanes, cudaStream_t s) {
   const int n = a.b1 - a.b0;
   if (pre == kLowQuality) {
     solve_lq_kernel<GIVEN><<<(n + kLqBlocks - 1) / kLqBlocks, kThreads, 0,
@@ -1510,16 +1667,16 @@ cudaError_t launch_pass(const PassArgs& a, int pre, int nt, bool by_size,
     return nt == 0     ? launch_joint<0, GIVEN>(a, by_size, s)
            : nt == 144 ? launch_joint<144, GIVEN>(a, by_size, s)
                        : launch_joint<242, GIVEN>(a, by_size, s);
-  } else if (GIVEN) {
+  } else if (GIVEN && lanes) {
+    const int ctas = (n + kSwBlocks - 1) / kSwBlocks;
     if (nt == 144)
-      solve_rebalance_kernel<144><<<blocks_for(n), kThreads, 0, s>>>(a);
+      solve_borders_lanes_kernel<144><<<ctas, kThreads, 0, s>>>(a);
     else
-      solve_rebalance_kernel<242><<<blocks_for(n), kThreads, 0, s>>>(a);
+      solve_borders_lanes_kernel<242><<<ctas, kThreads, 0, s>>>(a);
+  } else if (nt == 144) {
+    solve_borders_kernel<144, GIVEN><<<blocks_for(n), kThreads, 0, s>>>(a);
   } else {
-    if (nt == 144)
-      solve_rebalance_pix_kernel<144><<<blocks_for(n), kThreads, 0, s>>>(a);
-    else
-      solve_rebalance_pix_kernel<242><<<blocks_for(n), kThreads, 0, s>>>(a);
+    solve_borders_kernel<242, GIVEN><<<blocks_for(n), kThreads, 0, s>>>(a);
   }
   return cudaGetLastError();
 }
@@ -1575,7 +1732,7 @@ int jq_solve_rebalance_pix(const int* coef_in, const int* pix_in,
                                 div, x1, qshr, tab, pitch, nblocks, 0,
                                 nblocks, wb, hb * wb, 0, hb - 1,
                                 do_rebalance);
-    return (int)launch_pass<false>(a, kBorders, nt, false,
+    return (int)launch_pass<false>(a, kBorders, nt, false, false,
                                    (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
@@ -1599,26 +1756,27 @@ int jq_solve_fused_pix(const int* coef_in, const int* pix_in,
                                 nblocks, wb, hb * wb, 0, hb - 1,
                                 do_rebalance);
     return (int)launch_pass<false>(a, image2 ? kJoint : kLowQuality, nt,
-                                   false, (cudaStream_t)stream);
+                                   false, false, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }
 
 // B5: nt is 144 or 242, tab f32[64, pitch].  ld_* are the row strides of
 // the inputs (elements); the outputs are contiguous [64, n].  pix_out may
-// be NULL.
+// be NULL.  lanes: the lane body (the caller's choice by launch size,
+// cuda_solver.use_lane_body), else B2's.
 int jq_solve_rebalance(const int* coef_in, const int* borders, int* coef_out,
                        int* pix_out, const int* div, const int* x1,
                        const int* qshr, const float* tab, int nt, int pitch,
                        int n, int ld_coef, int ld_borders, int do_rebalance,
-                       void* stream) {
+                       int lanes, void* stream) {
   if ((nt != 144 && nt != 242) || !pitch_ok(nt, pitch))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const PassArgs a = given_pass(coef_in, borders, nullptr, coef_out,
                                   pix_out, div, x1, qshr, tab, pitch, n,
                                   ld_coef, ld_borders, 0, do_rebalance);
-    return (int)launch_pass<true>(a, kBorders, nt, false,
+    return (int)launch_pass<true>(a, kBorders, nt, false, lanes != 0,
                                   (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
@@ -1639,7 +1797,7 @@ int jq_solve_fused(const int* coef_in, const int* halo, const int* image2,
                                   div, x1, qshr, tab, pitch, n, ld_coef,
                                   ld_halo, ld_image2, do_rebalance);
     return (int)launch_pass<true>(a, image2 ? kJoint : kLowQuality, nt,
-                                  true, (cudaStream_t)stream);
+                                  true, false, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }
@@ -1665,7 +1823,8 @@ int jq_solve_range_pix(const int* coef_in, const int* pix_in,
     const PassArgs a = pix_pass(coef_in, pix_in, image2, coef_out, pix_out,
                                 div, x1, qshr, tab, pitch, nblocks, b0, b1,
                                 wb, nblocks, top_row, bot_row, do_rebalance);
-    return (int)launch_pass<false>(a, pre, nt, true, (cudaStream_t)stream);
+    return (int)launch_pass<false>(a, pre, nt, true, false,
+                                   (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

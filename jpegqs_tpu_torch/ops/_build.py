@@ -40,7 +40,7 @@ _SIGNATURES = {
     "jq_solve_fused_pix": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P],
     "jq_solve_rebalance": [_P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _I, _P],
     "jq_solve_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _P],
     "jq_solve_range_pix": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

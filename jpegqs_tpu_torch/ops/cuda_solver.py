@@ -15,7 +15,8 @@ The kernels of csrc/solver.cu:
 - ``solve_rebalance`` (B5) and ``solve_fused`` (B6): the passes of B2
   and B3/B4 on a neighbourhood the caller materialised (border lines
   or 10x10 halos), the progress path's passes; they take row chunks of
-  whole planes as column-slice views;
+  whole planes as column-slice views; B5 runs B2's kernel body, or on
+  launches of few CTAs an SM its lane body (``use_lane_body``);
 - ``solve_range_pix`` (B7): the pass of B2, B3 or B4 over a block range
   of a shard's ghost-extended grid, with the edges given by the caller,
   into a range of a whole-size output: the sharded resident loop's pass
@@ -43,7 +44,8 @@ from . import planar
 
 LAUNCHES = {"idct_pix": 0, "solve_rebalance_pix": 0,
             "solve_fused_pix_joint": 0, "solve_fused_pix_lq": 0,
-            "solve_rebalance": 0, "solve_fused_joint": 0,
+            "solve_rebalance": 0, "solve_rebalance_lanes": 0,
+            "solve_fused_joint": 0,
             "solve_fused_lq": 0, "solve_range_pix": 0,
             "solve_range_pix_joint": 0, "solve_range_pix_lq": 0, "peak": 0}
 
@@ -246,14 +248,44 @@ def solve_fused_pix(coef, pix, image2, div, x1, qshr, flags, do_rebalance,
     return out, pix_out
 
 
+# B5 takes its lane body (csrc/solver.cu solve_borders_lanes_kernel) on
+# launches of at most this many CTAs of 128 one-block threads per SM, B2's
+# body above: where the two bodies' kernel-only times cross on the planes
+# of tools/time_solver_kernels.py (b5_bodies_ms; NVIDIA H100 80GB HBM3,
+# 700 W: lane body / B2's at m = 1, 1.25, 1.5 CTAs an SM 0.205 / 0.302,
+# 0.26 / 0.30, 0.31 / 0.31 ms at NT 242, 0.163 / 0.19, 0.20 / 0.20,
+# 0.22 / 0.21 at NT 144; PERF.md, Findings)
+REBALANCE_LANES_CTAS_PER_SM = 1.25
+
+_SMS = {}
+
+
+def use_lane_body(n: int, sms: int) -> bool:
+    """Whether a B5 launch of ``n`` blocks on a card of ``sms`` SMs takes
+    the lane body: at most REBALANCE_LANES_CTAS_PER_SM CTAs of 128 blocks
+    per SM."""
+    return -(-n // 128) <= REBALANCE_LANES_CTAS_PER_SM * sms
+
+
+def _sm_count(device) -> int:
+    """The SM count of a CUDA device (asked once per device)."""
+    key = torch.device(device).index or 0
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(
+            key).multi_processor_count
+    return _SMS[key]
+
+
 def solve_rebalance(coef, borders, div, x1, qshr, flags, do_rebalance,
-                    want_pix=False):
+                    want_pix=False, lanes=None):
     """One solver pass (B5) on given border lines: coef int32[64, n];
     borders int32[32, n] (top, bottom, left, right, eight rows each);
     div/x1/qshr int32[64].  coef and borders may be column-slice views
     of whole planes (a row chunk).  Returns (coef', pix') with pix' the
     IDCT of coef', or (coef', None) unless ``want_pix``; the outputs are
-    new contiguous [64, n] tensors."""
+    new contiguous [64, n] tensors.  On the card the launch takes the
+    lane body when ``lanes``, B2's body when not, and by
+    ``use_lane_body`` when None."""
     n = coef.shape[1]
     tab = solver_tables(flags, coef.device)
     if _is_cpu(coef, borders, div, x1, qshr, tab):
@@ -262,6 +294,8 @@ def solve_rebalance(coef, borders, div, x1, qshr, flags, do_rebalance,
     ld_coef = _row_stride(coef, 64, n, "coef")
     ld_borders = _row_stride(borders, 32, n, "borders")
     _check_tables(div, x1, qshr)
+    if lanes is None:
+        lanes = use_lane_body(n, _sm_count(coef.device))
     lib = _build.load()
     out = torch.empty((64, n), dtype=torch.int32, device=coef.device)
     pix_out = torch.empty_like(out) if want_pix else None
@@ -270,9 +304,11 @@ def solve_rebalance(coef, borders, div, x1, qshr, flags, do_rebalance,
             coef.data_ptr(), borders.data_ptr(), out.data_ptr(),
             _ptr(pix_out), div.data_ptr(), x1.data_ptr(), qshr.data_ptr(),
             *_kernel_tab(flags, True, coef.device), n, ld_coef, ld_borders,
-            int(bool(do_rebalance)), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "solve_rebalance")
-    LAUNCHES["solve_rebalance"] += 1
+            int(bool(do_rebalance)), int(bool(lanes)),
+            torch.cuda.current_stream().cuda_stream)
+    name = "solve_rebalance_lanes" if lanes else "solve_rebalance"
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return out, pix_out
 
 

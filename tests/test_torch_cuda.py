@@ -109,7 +109,8 @@ def test_launch_counts(cuda):
     borders = torch.cat(planar.borders_from_blocks(pix.reshape(8, 8, -1), 4,
                                                    5))
     halo = planar.blocks_halo10(pix.reshape(8, 8, -1), 4, 5).reshape(100, -1)
-    cuda_solver.solve_rebalance(coef, borders, *tabs, 0, True)
+    cuda_solver.solve_rebalance(coef, borders, *tabs, 0, True)  # lane body
+    cuda_solver.solve_rebalance(coef, borders, *tabs, 0, True, lanes=False)
     cuda_solver.solve_fused(coef, halo, image2, *tabs, JOINT_YUV, True)
     cuda_solver.solve_fused(coef, halo, None, *tabs, LOW_QUALITY, True)
     cuda_solver.peak_chains(torch.ones(256, device=cuda), 4, 8)
@@ -123,14 +124,15 @@ def test_launch_counts(cuda):
     assert cuda_solver.LAUNCHES == {
         "idct_pix": 1, "solve_rebalance_pix": 1,
         "solve_fused_pix_joint": 1, "solve_fused_pix_lq": 1,
-        "solve_rebalance": 1, "solve_fused_joint": 1, "solve_fused_lq": 1,
+        "solve_rebalance": 1, "solve_rebalance_lanes": 1,
+        "solve_fused_joint": 1, "solve_fused_lq": 1,
         "solve_range_pix": 1, "solve_range_pix_joint": 1,
         "solve_range_pix_lq": 1, "peak": 1}
 
 
-def _chunk_inputs(cuda, seed, joint):
-    """A 9x13 plane's coefficients and materialised neighbourhoods."""
-    hb, wb = 9, 13
+def _chunk_inputs(cuda, seed, joint, hb=9, wb=13):
+    """A plane's coefficients and materialised neighbourhoods (9x13 unless
+    given)."""
     coef, pix, tabs = _inputs(hb, wb, seed, cuda)
     B = hb * wb
     borders = torch.cat(planar.borders_from_blocks(pix.reshape(8, 8, B), hb,
@@ -142,21 +144,36 @@ def _chunk_inputs(cuda, seed, joint):
     return coef, borders, halo, image2, tabs, wb
 
 
+# row chunks (r0, n) of a 9x13 plane (the whole plane, the first, a middle
+# and the last rows) and of a 210x130 plane: the whole plane (27,300
+# blocks, 214 CTAs of 128: above the lane body's size on an H100) and 100
+# rows of it (13,000 blocks, no multiple of 128)
 @pytest.mark.cuda
-@pytest.mark.parametrize("r0,n", [(0, 9), (0, 2), (4, 3), (8, 1)])
+@pytest.mark.parametrize("hb,wb,r0,n", [(9, 13, 0, 9), (9, 13, 0, 2),
+                                        (9, 13, 4, 3), (9, 13, 8, 1),
+                                        (210, 130, 0, 210),
+                                        (210, 130, 60, 100)])
 @pytest.mark.parametrize("flags", [0, DIAGONALS])
-def test_solve_rebalance_chunks_on_card(cuda, r0, n, flags):
+def test_solve_rebalance_chunks_on_card(cuda, hb, wb, r0, n, flags):
     """B5 vs its plain version on a row chunk given as column-slice
-    views of the whole plane (the first, a middle and the last rows)."""
-    coef, borders, _, _, tabs, wb = _chunk_inputs(cuda, 3 + flags, False)
+    views of the whole plane, on its lane body, on B2's body and on the
+    body its size picks; rebalance and pixels on and off."""
+    coef, borders, _, _, tabs, wb = _chunk_inputs(cuda, 3 + flags, False,
+                                                  hb, wb)
     s = slice(r0 * wb, (r0 + n) * wb)
     tab = cuda_solver.solver_tables(flags, cuda)
     for reb in (True, False):
-        got = cuda_solver.solve_rebalance(coef[:, s], borders[:, s], *tabs,
-                                          flags, reb, want_pix=True)
-        want = planar.solve_rebalance(coef[:, s], borders[:, s], *tabs, tab,
-                                      reb, want_pix=True)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for want_pix in (True, False):
+            want = planar.solve_rebalance(coef[:, s], borders[:, s], *tabs,
+                                          tab, reb, want_pix)
+            for lanes in (True, False, None):
+                got = cuda_solver.solve_rebalance(coef[:, s], borders[:, s],
+                                                  *tabs, flags, reb,
+                                                  want_pix, lanes)
+                assert torch.equal(got[0], want[0])
+                assert (got[1] is None) == (not want_pix)
+                if want_pix:
+                    assert torch.equal(got[1], want[1])
 
 
 # block slices [s0, s1) of the 9x13 plane: its rows 0-8, 4-6 and 8, and
@@ -203,9 +220,10 @@ def test_peak_vs_plain_on_card(cuda, nch):
 @pytest.mark.cuda
 def test_progress_run_launches(cuda):
     """A 4:2:0 q6 n3 progress run: per component three B1 + one for the
-    plane, three passes (B5 on the luma, B6 JOINT on the chroma), and the
-    same output as the run without a callback; with ``precise`` at
-    progprec -1, one pass per block row and progress step."""
+    plane, three passes (B5 on the luma -- 48 blocks, its lane body --, B6
+    JOINT on the chroma), and the same output as the run without a
+    callback; with ``precise`` at progprec -1, one pass per block row and
+    progress step."""
     from jpegqs_tpu_torch import QsOptions, engine, synth
     img = synth.make_image(64, 48, color=True, seed=3)
     calls = []
@@ -214,7 +232,8 @@ def test_progress_run_launches(cuda):
     cuda_solver.reset_launches()
     res = engine.smooth(img, opts)
     assert cuda_solver.LAUNCHES["idct_pix"] == 12
-    assert cuda_solver.LAUNCHES["solve_rebalance"] == 3
+    assert cuda_solver.LAUNCHES["solve_rebalance_lanes"] == 3
+    assert cuda_solver.LAUNCHES["solve_rebalance"] == 0
     assert cuda_solver.LAUNCHES["solve_fused_joint"] == 6
     plain = engine.smooth(img, QsOptions.from_quality(6, 3))
     assert all(np.array_equal(a, b) for a, b in zip(res.coefs, plain.coefs))
@@ -224,7 +243,7 @@ def test_progress_run_launches(cuda):
     cuda_solver.reset_launches()
     res = engine.smooth(img, opts)
     hb = [c.height_in_blocks for c in img.components]
-    assert cuda_solver.LAUNCHES["solve_rebalance"] == 3 * hb[0]
+    assert cuda_solver.LAUNCHES["solve_rebalance_lanes"] == 3 * hb[0]
     assert cuda_solver.LAUNCHES["solve_fused_joint"] == 3 * (hb[1] + hb[2])
     assert all(np.array_equal(a, b) for a, b in zip(res.coefs, plain.coefs))
 

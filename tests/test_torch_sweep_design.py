@@ -12,11 +12,18 @@ the CPU: numpy and torch only, no JAX.
   (downsample_blocks + blocks_halo10 at 4:2:0, 4:2:2 and 4:4:4) lie in
   0..255, so B3 may stage them as 16-bit values;
 - (d) the kernels' padded solver tables hold the plain table in their
-  first NT columns and zeros after, in rows of a multiple of four.
-
-The sweep variants are written here, step by step as the kernel runs
-them; the package's plain versions are not changed.
+  first NT columns and zeros after, in rows of a multiple of four;
+- (e) B5's lane body (csrc/solver.cu solve_borders_lanes_kernel) runs
+  the steps of a refresh group side by side, one lane each: its group
+  table and step order are the plain version's groups, a group's steps
+  change distinct coefficients, and (b) shows that steps folded from the
+  group-start pixels in any order give the plain result;
+- (f) a B5 launch takes the lane body up to
+  REBALANCE_LANES_CTAS_PER_SM CTAs of 128 blocks an SM, B2's body above.
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -146,3 +153,32 @@ def test_kernel_tables_padding(flags):
     assert nt <= padded.shape[1] < nt + 4
     assert torch.equal(padded[:, :nt], plain)
     assert not padded[:, nt:].any()
+
+
+def _solver_cu_array(name):
+    """The integers of ``__constant__ int name[...] = {...}`` in
+    csrc/solver.cu."""
+    path = os.path.join(os.path.dirname(cuda_solver.__file__), "..", "csrc",
+                        "solver.cu")
+    src = open(path).read()
+    body = re.search(r"int %s\[\d+\] = \{([^}]*)\}" % name, src).group(1)
+    return [int(x) for x in body.replace("\n", " ").split(",")]
+
+
+def test_lane_body_groups():
+    iseq, refresh = _solver_cu_array("c_iseq"), _solver_cu_array("c_refresh")
+    starts = _solver_cu_array("c_group")
+    assert starts == [k for k in range(63) if refresh[k]] + [63]
+    groups = [tuple(iseq[k0:k1]) for k0, k1 in zip(starts, starts[1:])]
+    assert groups == [tuple(g) for g in planar.GROUPS]
+    assert all(1 <= len(g) <= 8 and len(set(g)) == len(g) for g in groups)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 7])
+def test_lane_body_by_size(sms):
+    per_sm = cuda_solver.REBALANCE_LANES_CTAS_PER_SM
+    n_max = int(per_sm * sms) * 128
+    for n in (1, 128, n_max - 127, n_max):
+        assert cuda_solver.use_lane_body(n, sms), n
+    for n in (n_max + 1, n_max + 128, 10 * n_max + 1):
+        assert not cuda_solver.use_lane_body(n, sms), n
