@@ -42,12 +42,25 @@ on any mismatch:
    colour photo at q3 n1, q6 n3 and q2 n3 and on the 2.1 MP gray frame of
    bench.py at q3 n1 and q0 n3: launch counts per run, bit-identity with
    the plain path on the card, device and end-to-end times, MP/s;
-8. drives the progress path on the 12 MP photo: q6 n3 per iteration and
+8. drives the batch engine, ``jpegqs_tpu_torch.smooth_image_batch`` /
+   ``smooth_plane_batch``, on distinct synthetic images (seeds 0..N-1):
+   8 of the 12 MP photos at q6 n3 and q2 n3, 16 of the 2.1 MP frames at
+   q3 n3 and as planes at q0 n3, and 5 frames at q3 n3 of which one trips
+   the dequantization guard: launch counts worked out from the plan (one
+   image's, for any N), bit-identity with per-image smooth() on the card
+   and, on small batches of each kind, with the plain path; device and
+   end-to-end times and MP/s beside N sequential smooth() calls, the
+   card's busy share; and that a batch's dispatch waits for nothing;
+9. the decode path (``engine._decode_native``): the golden SHA-256
+   digests of jpegqs_tpu's decoded pixels (DECODE_GOLDEN) on the card,
+   then the 12 MP photo at q3 n1 and q6 n3 and the 2.1 MP frame at q3
+   n3, one B1 per component, pixels bit-identical to the CPU path, times;
+10. drives the progress path on the 12 MP photo: q6 n3 per iteration and
    with row chunks (progprec 20), q2 n3 per iteration, and a cancel at
    the third callback: the (cur, max) trace and the launch counts worked
    out from the image, the planes against the plain path on the card and
    the fused run, times;
-9. the sharded path, with its shards on this one card: B7 bit for bit
+11. the sharded path, with its shards on this one card: B7 bit for bit
    against its plain version on every shard of small random planes (2-4
    shards, dead pad rows, every edge position, split ranges, ranges that
    start and end inside a 16-block tile, a single block, rows 1 and 37
@@ -58,12 +71,14 @@ on any mismatch:
    off and on, the 12 MP photo at q3 n3 over 3 and the 2.1 MP frame at q0
    n3 over 4: launch counts worked out from the image, bit-identity with
    the single-device run, times beside the single-device ones, the ghost
-   exchange's time; and the golden digests through the sharded path.
+   exchange's time; and the golden digests through the sharded path;
+12. where the machine has libjpeg's headers, the transcode path,
+   smooth_many and the CLI's --batch against smooth_jpeg_bytes.
 
 Its last line is {"ok": true, "device": {...}}; the line before it is
 nvidia-smi's name and power limit, and before that one JSON line of
 per-kernel numbers (B1-B7, T3, T1/T2), and before that one summary line
-per main-path, progress-path and sharded run.  Without a CUDA device it
+per main-path, batch, progress-path and sharded run.  Without a CUDA device it
 exits 1 and prints no result.
 """
 
@@ -82,7 +97,8 @@ import jpegqs_tpu_torch
 from jpegqs_tpu_torch import (DIAGONALS, JOINT_YUV, LOW_QUALITY, UPSAMPLE_UV,
                               QsOptions, engine, quality_to_flags, synth)
 from jpegqs_tpu_torch.host.jpegio import ComponentData, JpegImage, JCS_YCBCR
-from jpegqs_tpu_torch.ops import _build, cuda_solver, dct, planar
+from jpegqs_tpu_torch import batch
+from jpegqs_tpu_torch.ops import _build, colorout, cuda_solver, dct, planar
 from jpegqs_tpu_torch.ops.quant import make_quant_tables
 from jpegqs_tpu_torch.parallel import sharded
 
@@ -199,6 +215,19 @@ GOLDEN = {
 }
 
 
+# SHA-256 of jpegqs_tpu.engine._decode_native's pixels (pixel_digest) of
+# three golden cases' smoothed planes: gray, 4:2:0 and 4:2:0 with the
+# upsampled planes
+DECODE_GOLDEN = {
+    "gray_q3_n3":
+        "08a1f01d7fec89959796ae1aa71007e712b884562d74b2146299bf130f4b1eb0",
+    "c420_q3_n3":
+        "5f0dfbabfefbe5de6fb8f4415759440407939fbbad5e4713b6d733256d937a46",
+    "c420_q6_n3":
+        "ae1a1464e9f65ef46fd44f0c084a7d0a1fdc87709af1dfd74180ea7d2ec42c41",
+}
+
+
 def crafted_image(which):
     """tests/test_robustness.py's damaged inputs, one 6x8-block plane per
     component: a dequantized coefficient past int16 (900 * 64), alone or
@@ -243,6 +272,13 @@ def digest(coefs, stop, upsampled=None) -> str:
     for c in list(coefs) + list(upsampled or ()):
         h.update(np.ascontiguousarray(c, dtype="<i2").tobytes())
     h.update(bytes([int(stop)]))
+    return h.hexdigest()
+
+
+def pixel_digest(pixels) -> str:
+    """SHA-256 over the shape (as text) and the uint8 pixels in C order."""
+    h = hashlib.sha256(str(tuple(pixels.shape)).encode())
+    h.update(np.ascontiguousarray(pixels, dtype=np.uint8).tobytes())
     return h.hexdigest()
 
 
@@ -1085,18 +1121,17 @@ def phase_main(torch, runs, card):
                   ).astype(np.int16)))
             for a, c in zip(res.coefs, img.components))
         plan = engine.plan_image(img, opts)
-        inputs = engine.upload(img, plan.comps, engine.resolve_device())
+        inputs = engine.upload([img], plan.comps, engine.resolve_device())
         run = lambda: engine.run_image(plan, inputs)
         dev_ms = cuda_ms(run)
         with plain_kernels():
             plain_ms = cuda_ms(run, 3)
         e2e_ms = host_ms(lambda: jpegqs_tpu_torch.smooth(img, opts))
-        up_ms = host_ms(lambda: (engine.upload(img, plan.comps,
+        up_ms = host_ms(lambda: (engine.upload([img], plan.comps,
                                                inputs[0][0].device),
                                  torch.cuda.synchronize()))
         outs, _, ups = run()
-        down_ms = host_ms(lambda: [o.cpu().numpy()
-                                   for o in outs + list(ups.values())])
+        down_ms = host_ms(lambda: engine.download(outs + list(ups.values()))())
         mp = img.width * img.height / 1e6
         tag = f"q{quality} n{niter}"
         log(f"{name}: {img.width}x{img.height} ({mp:.2f} MP), {tag}, "
@@ -1122,6 +1157,297 @@ def phase_main(torch, runs, card):
             f"{busy - sum(by_kernel.values()):.3f} ms [{card}]")
     log(f"main path launches (all runs): {total}")
     return total, summaries
+
+
+# the batch phase's batches: N distinct synthetic images of one shape
+# (seeds 0..N-1, IJG q75, so they share tables and geometry)
+BATCH_COLOR = 8
+BATCH_GRAY = 16
+BATCH_GUARD = 5
+# the small batches the plain path runs (its intermediates grow with B)
+SMALL_COLOR_HW = (480, 640)
+SMALL_GRAY_HW = (270, 480)
+
+
+def expected_launches(plan):
+    """One image's kernel launches, worked out from its plan: one B1 per
+    component that smooths, then per pass one B3 (a component after the
+    luma when JOINT_YUV reads the downsampled luma), B4 (LOW_QUALITY) or
+    B2."""
+    want = {}
+    for k, p in enumerate(plan.comps):
+        if p.mode != "smooth":
+            continue
+        joint = k > 0 and plan.need_downsample and plan.flags & JOINT_YUV
+        key = ("solve_fused_pix_joint" if joint
+               else "solve_fused_pix_lq" if plan.flags & LOW_QUALITY
+               else "solve_rebalance_pix")
+        want["idct_pix"] = want.get("idct_pix", 0) + 1
+        want[key] = want.get(key, 0) + p.niter
+    return want
+
+
+def counted(torch, fn):
+    """(fn(), the kernel launches it made): the counts set to 0 just
+    before, read just after."""
+    cuda_solver.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in cuda_solver.LAUNCHES.items() if v}
+
+
+def tripped(img, seed):
+    """A copy of gray image img whose plane trips the dequantization
+    guard: one coefficient at 1000 (x its quantizer >= 2048)."""
+    out = JpegImage(width=img.width, height=img.height,
+                    jpeg_color_space=img.jpeg_color_space, progressive=False,
+                    max_h_samp_factor=1, max_v_samp_factor=1)
+    c = img.components[0]
+    coefs = c.coefs.copy()
+    rng = np.random.default_rng(seed)
+    coefs[rng.integers(c.height_in_blocks), rng.integers(c.width_in_blocks),
+          rng.integers(64)] = 1000
+    out.components.append(ComponentData(
+        component_id=c.component_id, h_samp_factor=1, v_samp_factor=1,
+        quant_tbl_no=0, width_in_blocks=c.width_in_blocks,
+        height_in_blocks=c.height_in_blocks, quantval=c.quantval.copy(),
+        coefs=coefs))
+    return out
+
+
+def batch_inputs(color, gray):
+    """The batch phase's images: BATCH_COLOR 12 MP 4:2:0 photos and
+    BATCH_GRAY 2.1 MP gray frames (seeds 0..N-1; seed 0 is the main
+    path's), the first BATCH_GUARD frames with the third tripping the
+    guard, and the small batches of each kind for the plain path."""
+    t0 = time.perf_counter()
+    colors = [color] + [synth.make_image(*COLOR_HW, color=True, seed=s)
+                        for s in range(1, BATCH_COLOR)]
+    grays = [gray] + [synth.make_image(*GRAY_HW, color=False, seed=s)
+                      for s in range(1, BATCH_GRAY)]
+    guard = list(grays[:BATCH_GUARD])
+    guard[2] = tripped(guard[2], 2)
+    small_c = [synth.make_image(*SMALL_COLOR_HW, color=True, seed=s)
+               for s in range(3)]
+    small_g = [synth.make_image(*SMALL_GRAY_HW, color=False, seed=s)
+               for s in range(3)]
+    small_guard = [small_g[0], tripped(small_g[1], 1), small_g[2]]
+    log(f"batch inputs: {BATCH_COLOR} x {COLOR_HW[1]}x{COLOR_HW[0]} 4:2:0 and "
+        f"{BATCH_GRAY} x {GRAY_HW[1]}x{GRAY_HW[0]} gray, IJG q75, seeds "
+        f"0..N-1, and the small batches, {time.perf_counter() - t0:.1f} s "
+        f"(host)")
+    return colors, grays, guard, small_c, small_g, small_guard
+
+
+def phase_batch(torch, card, color, gray):
+    """The batch engine at full size, through its entry points: per case
+    the launch counts (worked out from the plan: one image's, for any N),
+    bit-identity with per-image smooth() on the card and, on a small batch
+    of the same kind, with the plain path; device time (CUDA events, the
+    inputs resident), end-to-end time and MP/s beside N sequential
+    smooth() calls, and the card's busy share.  Returns the summed launch
+    counts and one summary line per case."""
+    dev = engine.resolve_device()
+    colors, grays, guard, small_c, small_g, small_guard = batch_inputs(
+        color, gray)
+    coefs16 = np.stack([g.components[0].coefs for g in grays])
+    qtbl = grays[0].components[0].quantval
+    total = dict.fromkeys(cuda_solver.LAUNCHES, 0)
+    summaries = []
+    # (name, images, small images, quality, reps, plane batch)
+    cases = ((f"color_12mp x{BATCH_COLOR}", colors, small_c, 6, 3, False),
+             (f"color_12mp x{BATCH_COLOR}", colors, small_c, 2, 3, False),
+             (f"gray_2mp x{BATCH_GRAY}", grays, small_g, 3, 5, False),
+             (f"gray_2mp x{BATCH_GRAY} planes", grays, small_g, 0, 5, True),
+             (f"gray_2mp x{BATCH_GUARD}, one tripped", guard, small_guard, 3,
+              5, False))
+    for name, imgs, small, quality, reps, plane in cases:
+        opts = QsOptions.from_quality(quality, 3)
+        n = len(imgs)
+        plan = engine.plan_image(imgs[0], opts)
+        want = expected_launches(plan)
+        def run_batch(ims):
+            if plane:
+                return list(batch.smooth_plane_batch(
+                    np.stack([g.components[0].coefs for g in ims]),
+                    ims[0].components[0].quantval, opts.flags, opts.niter))
+            return batch.smooth_image_batch(ims, opts)
+
+        same = np.array_equal if plane else _same
+        got, counts = counted(torch, lambda: run_batch(imgs))
+        assert counts == want, f"{name}: batch launches {counts} != {want}"
+        for k, v in counts.items():
+            total[k] += v
+        # per image on the card: one image's launches, the same planes
+        for i, im in enumerate(imgs):
+            one, c1 = counted(torch, lambda: jpegqs_tpu_torch.smooth(im, opts))
+            assert c1 == want, f"{name} image {i}: launches {c1} != {want}"
+            assert same(got[i], one.coefs[0] if plane else one), \
+                f"{name} image {i}: batch != per-image smooth()"
+        stops = [0] * n if plane else [g.stop for g in got]
+        if imgs is guard:
+            assert stops == [0, 0, 1, 0, 0], stops
+        elif not plane:
+            for im, g in zip(imgs, got):
+                _check_planes(im, g, opts)
+        small_got = run_batch(small)
+        with plain_kernels():
+            small_plain = run_batch(small)
+        for i, (a, b) in enumerate(zip(small_got, small_plain)):
+            assert same(a, b), \
+                f"{name} small image {i}: kernel path != plain path"
+
+        # times: the device run on resident inputs, the entry point end to
+        # end, and the same images one smooth() at a time
+        if plane:
+            tabs = [to_dev(t) for t in (qtbl.astype(np.int32),
+                                        *make_quant_tables(qtbl))]
+            c16 = to_dev(coefs16.reshape(-1, 64))
+            hb, wb = coefs16.shape[1:3]
+            run = lambda: engine.component_smooth(
+                c16, *tabs, hb=hb, wb=wb, flags=opts.flags,
+                niter=opts.niter, luma=True, n=n)
+        else:
+            inputs = engine.upload(imgs, plan.comps, dev)
+            run = lambda: engine.run_image(plan, inputs, n)
+        if name.startswith("color") and quality == 6:
+            # the dispatch queues every launch: nothing in it waits for
+            # the card (PyTorch raises on a synchronizing call)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                asm = batch._batch_dispatch(imgs, opts, dev)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert all(_same(a, b) for a, b in zip(asm(), got))
+        if plane:
+            entry = lambda: batch.smooth_plane_batch(coefs16, qtbl,
+                                                     opts.flags, opts.niter)
+        else:
+            entry = lambda: batch.smooth_image_batch(imgs, opts)
+        dev_ms = cuda_ms(run, reps)
+        e2e_ms = host_ms(entry, reps)
+        seq_inputs = [engine.upload([im], plan.comps, dev) for im in imgs]
+        seq_dev_ms = cuda_ms(lambda: [engine.run_image(plan, x)
+                                      for x in seq_inputs], reps)
+        seq_ms = host_ms(lambda: [jpegqs_tpu_torch.smooth(im, opts)
+                                  for im in imgs], reps)
+        del seq_inputs
+        mp = n * imgs[0].width * imgs[0].height / 1e6
+        rate = lambda ms: mp / ms * 1e3
+        log(f"batch {name}: q{quality} n3, {n} images ({mp:.2f} MP), "
+            f"launches {counts} (one image's, from the plan), stops "
+            f"{stops}; bit-identical to per-image smooth() on the card and, "
+            f"on {len(small)} smaller images, to the plain path")
+        log(f"  device {dev_ms:.3f} ms ({rate(dev_ms):.1f} MP/s), "
+            f"end-to-end {e2e_ms:.3f} ms ({rate(e2e_ms):.1f} MP/s); "
+            f"sequential: device {seq_dev_ms:.3f} ms "
+            f"({rate(seq_dev_ms):.1f} MP/s), smooth() x{n} {seq_ms:.3f} ms "
+            f"({rate(seq_ms):.1f} MP/s) [{card}]")
+        busy, n_launch, by_kernel = device_breakdown(torch, run, dev_ms,
+                                                     card)
+        split = ", ".join(f"{k} {v:.3f} ms" for k, v in by_kernel.items()
+                          if v > 0)
+        summaries.append(
+            f"summary batch {name} q{quality} n3: device {dev_ms:.3f} ms "
+            f"({rate(dev_ms):.1f} MP/s; sequential {seq_dev_ms:.3f}), "
+            f"end-to-end {e2e_ms:.3f} ms ({rate(e2e_ms):.1f} MP/s; "
+            f"sequential smooth() {seq_ms:.3f}, {rate(seq_ms):.1f} MP/s); "
+            f"card busy {100 * busy / dev_ms:.1f}%, {n_launch} kernels, "
+            f"{split}, glue {busy - sum(by_kernel.values()):.3f} ms [{card}]")
+        del run, got
+        torch.cuda.empty_cache()
+    summaries.append(check_window(torch, card, grays,
+                                  QsOptions.from_quality(3, 3)))
+    log(f"batch launches (all cases): {total}")
+    return total, summaries
+
+
+# batches in flight in check_window (the corpus pipeline's window)
+WINDOW = 4
+
+
+def check_window(torch, card, imgs, opts):
+    """WINDOW batches of imgs dispatched ahead of their assemble() calls,
+    as smooth_corpus queues them, against each batch dispatched and
+    assembled in turn: the same planes; a batch's assemble() waits for
+    its own batch alone (with a spin of the card queued behind the first
+    batch, its assemble() returns while the card still spins); and the
+    batches in flight take less time than the batches in turn, medians
+    of 5 on the host clock.  Returns a summary line."""
+    dev = engine.resolve_device()
+    plan = engine.plan_image(imgs[0], opts)
+
+    def in_turn():
+        return [engine.dispatch(imgs, plan, dev)() for _ in range(WINDOW)]
+
+    def ahead():
+        pending = [engine.dispatch(imgs, plan, dev) for _ in range(WINDOW)]
+        return [asm() for asm in pending]
+
+    want = in_turn()[0]
+    for got in ahead():
+        assert all(_same(a, b) for a, b in zip(got, want)), \
+            "window: a batch in flight != the batch in turn"
+    first = engine.dispatch(imgs, plan, dev)
+    torch.cuda._sleep(1 << 31)      # ~1 s of the card's clock
+    later = engine.dispatch(imgs, plan, dev)
+    first()
+    spinning = not torch.cuda.current_stream().query()
+    later()
+    assert spinning, "window: assemble() waited for the batches after its own"
+    turn_ms = host_ms(lambda: (in_turn(), torch.cuda.synchronize()))
+    ahead_ms = host_ms(lambda: (ahead(), torch.cuda.synchronize()))
+    line = (f"summary batch window: {WINDOW} batches of {len(imgs)} x "
+            f"{imgs[0].width}x{imgs[0].height} gray q3 n3 in flight "
+            f"{ahead_ms:.3f} ms, in turn {turn_ms:.3f} ms "
+            f"({turn_ms / ahead_ms:.2f}x); assemble() waits for its own "
+            f"batch alone [{card}]")
+    log(line)
+    assert ahead_ms < turn_ms, "window: batches in flight were not faster"
+    return line
+
+
+def phase_decode(torch, card, color, gray):
+    """decode_smoothed's device decode (engine._decode_native): the
+    golden digests of jpegqs_tpu's pixels on small cases, then the 12 MP
+    photo at q3 n1 and q6 n3 (the upsampled planes) and the 2.1 MP gray
+    frame at q3 n3 -- one B1 per component, pixels bit-identical to the
+    CPU path on the same planes, device and end-to-end times."""
+    for case in GOLDEN_CASES:
+        if case[0] not in DECODE_GOLDEN:
+            continue
+        img = golden_image(case)
+        res = engine.smooth(img, golden_opts(case), DEVICE)
+        got = pixel_digest(engine._decode_native(img, res, DEVICE))
+        assert got == DECODE_GOLDEN[case[0]], (
+            f"decode golden {case[0]}: {got} != {DECODE_GOLDEN[case[0]]}")
+    log(f"decode golden digests of the JAX package reproduced on the card: "
+        f"{', '.join(DECODE_GOLDEN)}")
+    total = dict.fromkeys(cuda_solver.LAUNCHES, 0)
+    for name, img, quality, niter in (("color_12mp", color, 3, 1),
+                                      ("color_12mp", color, 6, 3),
+                                      ("gray_2mp", gray, 3, 3)):
+        res = engine.smooth(img, QsOptions.from_quality(quality, niter))
+        px, counts = counted(torch, lambda: engine._decode_native(img, res))
+        assert counts == {"idct_pix": len(img.components)}, counts
+        for k, v in counts.items():
+            total[k] += v
+        cpu = engine._decode_native(img, res, "cpu")
+        assert px.dtype == np.uint8 and np.array_equal(px, cpu), \
+            f"decode {name}: card != CPU path"
+        planes, dims, ws, hs = engine.decode_layout(img, res)
+        dev_planes = [to_dev(p) for p in planes]
+        dev_ms = cuda_ms(lambda: colorout.decode(dev_planes, dims, ws, hs,
+                                                 img.height, img.width))
+        e2e_ms = host_ms(lambda: engine._decode_native(img, res))
+        mp = img.width * img.height / 1e6
+        log(f"decode {name} q{quality} n{niter} ({mp:.2f} MP, "
+            f"{'upsampled planes' if res.upsampled is not None else 'planes'}"
+            f" {ws}x{hs}): {px.shape} pixels bit-identical to the CPU path, "
+            f"launches {counts}; device {dev_ms:.3f} ms "
+            f"({mp / dev_ms * 1e3:.1f} MP/s), _decode_native() "
+            f"{e2e_ms:.3f} ms [{card}]")
+    return total
 
 
 def recorder(calls, cancel_at=0):
@@ -1516,7 +1842,7 @@ def single_device_numbers(torch, img, opts, cache):
         dev = engine.resolve_device()
         res = engine._smooth_fused(img, opts, dev)
         plan = engine.plan_image(img, opts)
-        inputs = engine.upload(img, plan.comps, dev)
+        inputs = engine.upload([img], plan.comps, dev)
         cache[key] = (res, cuda_ms(lambda: engine.run_image(plan, inputs)),
                       host_ms(lambda: engine._smooth_fused(img, opts, dev)))
     return cache[key]
@@ -1637,7 +1963,7 @@ def phase_multicard(torch, runs, card):
         run = sharded_device_run(img, opts, devices)
         dev_ms = host_ms(lambda: (run(), sync()))
         plan = engine.plan_image(img, opts)
-        inputs = engine.upload(img, plan.comps, devices[0])
+        inputs = engine.upload([img], plan.comps, devices[0])
         dev1_ms = host_ms(lambda: (engine.run_image(plan, inputs), sync()))
         e2e_ms = host_ms(lambda: jpegqs_tpu_torch.smooth(img, opts))
         e2e1_ms = host_ms(lambda: engine._smooth_fused(img, opts, devices[0]))
@@ -1744,16 +2070,18 @@ def kernel_label(key, sharded):
 
 
 def phase_transcode(torch, card):
-    """smooth_jpeg_bytes on a JPEG of the 2.1 MP gray frame.  The host
-    codec needs libjpeg; where the machine has no jpeglib.h the phase
-    says so and does not run."""
+    """smooth_jpeg_bytes on a JPEG of the 2.1 MP gray frame, then
+    smooth_many and the CLI's --batch on four.  The host codec needs
+    libjpeg; where the machine has no jpeglib.h the phase says so and
+    does not run."""
     import os
     from jpegqs_tpu_torch.host import jpegio
     incs = ("/usr/include", "/usr/local/include",
             "/usr/include/x86_64-linux-gnu")
     if not any(os.path.exists(os.path.join(d, "jpeglib.h")) for d in incs):
-        log("transcode (smooth_jpeg_bytes): not run: this machine has no "
-            "libjpeg headers (jpeglib.h), which the host codec needs")
+        log("transcode (smooth_jpeg_bytes), smooth_many and --batch: not "
+            "run: this machine has no libjpeg headers (jpeglib.h), which "
+            "the host codec needs")
         return
     data = jpegio.encode_pixels(synth.synth_image(*GRAY_HW, seed=0),
                                 quality=75)
@@ -1768,6 +2096,30 @@ def phase_transcode(torch, card):
     log(f"transcode (smooth_jpeg_bytes) {GRAY_HW[1]}x{GRAY_HW[0]} gray: "
         f"{len(data)} -> {len(out)} bytes, {ms:.3f} ms, bit-identical to "
         f"the plain path [{card}]")
+    # the corpus pipeline and the CLI's --batch: 4 gray frames in one
+    # bucket, bit-identical to one smooth_jpeg_bytes() each
+    import tempfile
+    from jpegqs_tpu_torch import cli
+    datas = [jpegio.encode_pixels(synth.synth_image(*GRAY_HW, seed=s),
+                                  quality=75) for s in range(4)]
+    seq = [jpegqs_tpu_torch.smooth_jpeg_bytes(d, opts) for d in datas]
+    assert jpegqs_tpu_torch.smooth_many(datas, opts) == seq, \
+        "smooth_many != smooth_jpeg_bytes"
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for i, data_i in enumerate(datas):
+            paths.append(os.path.join(d, f"in{i}.jpg"))
+            with open(paths[-1], "wb") as f:
+                f.write(data_i)
+        assert cli.main(["--batch", "-i", "0", *paths,
+                         os.path.join(d, "out")]) == 0
+        for i, want in enumerate(seq):
+            with open(os.path.join(d, "out", f"in{i}.jpg"), "rb") as f:
+                assert f.read() == want, "--batch != smooth_jpeg_bytes"
+    ms = host_ms(lambda: jpegqs_tpu_torch.smooth_many(datas, opts), 3)
+    log(f"smooth_many / --batch, 4 x {GRAY_HW[1]}x{GRAY_HW[0]} gray: "
+        f"bit-identical to smooth_jpeg_bytes, smooth_many {ms:.3f} ms "
+        f"[{card}]")
 
 
 REPLACES = {
@@ -1842,6 +2194,10 @@ def main() -> int:
     ), card)
     stamp("main path")
     main_launches = dict(launches)
+    batch_launches, batch_summaries = phase_batch(torch, card, color, gray)
+    stamp("batch engine")
+    decode_launches = phase_decode(torch, card, color, gray)
+    stamp("decode path")
     progress_launches, progress_summaries = phase_progress(torch, color, card)
     stamp("progress path")
     phase_b7_vs_plain(torch, stats)
@@ -1871,14 +2227,15 @@ def main() -> int:
         ("gray_2mp", gray, 0, 3)), card)
     sharded_summaries += multicard_summaries
     stamp("sharded path")
-    for counts in (progress_launches, sharded_launches, golden_launches,
-                   multicard_launches):
+    for counts in (batch_launches, decode_launches, progress_launches,
+                   sharded_launches, golden_launches, multicard_launches):
         for k, v in counts.items():
             launches[k] += v
     unused = [k for k in launches if k not in OFF_PATH and not launches[k]]
     assert not unused, f"kernels the main paths never launched: {unused}"
     phase_transcode(torch, card)
-    for line in summaries + progress_summaries + sharded_summaries:
+    for line in (summaries + batch_summaries + progress_summaries
+                 + sharded_summaries):
         log(line)
     rows = []
     for name in list(cuda_solver.LAUNCHES) + list(canaries):

@@ -8,14 +8,22 @@ at any sampling factors, with or without a progress callback (per
 iteration, or per row chunk with ``precise``; a truthy return
 cancels).  With more than one CUDA device and no callback, ``smooth``
 shards a large image's block rows over every device
-(parallel/sharded.py).  Batching, the 2-D shard grid, multi-process
-sharding and ``decode_smoothed`` are not ported yet.  It imports neither
-JAX nor anything of ``jpegqs_tpu``.
+(parallel/sharded.py).  The batch engine (batch.py) runs many same-shape
+images as one block axis through the same kernels, and
+``decode_smoothed`` decodes the smoothed planes to pixels on the device.
+The 2-D shard grid and multi-process sharding are not ported yet.  It
+imports neither JAX nor anything of ``jpegqs_tpu``.
 
 Public API:
   smooth(img, opts, device=None)            -- coefficient-level engine
   smooth_jpeg_bytes(data, opts, optimize, device)
                                             -- JPEG bytes -> smoothed JPEG
+  decode_smoothed(data, opts, device)       -- JPEG bytes -> smoothed pixels
+  smooth_many(datas, opts, workers, optimize, device)
+                                            -- a corpus of JPEG bytes
+  smooth_plane_batch(coefs, qtbl, flags, niter, luma, device)
+                                            -- N same-shape gray planes
+  smooth_image_batch(imgs, opts, device)    -- N same-shape images
   QsOptions / quality_to_flags / flags      -- option surface
   host.jpegio                               -- host-side entropy codec
 Entry points run on the card (``cuda``) unless ``device="cpu"``.
@@ -31,6 +39,8 @@ __all__ = [
     "QsOptions", "quality_to_flags", "DIAGONALS", "JOINT_YUV",
     "UPSAMPLE_UV", "LOW_QUALITY", "NO_REBALANCE", "NO_REBALANCE_UV",
     "TRANSCODE", "ITER_MAX", "smooth", "smooth_jpeg_bytes",
+    "decode_smoothed", "smooth_many", "smooth_plane_batch",
+    "smooth_image_batch",
 ]
 
 
@@ -42,3 +52,23 @@ def smooth(img, opts, device=None):
 def smooth_jpeg_bytes(data, opts=None, optimize=False, device=None):
     from . import engine
     return engine.smooth_jpeg_bytes(data, opts, optimize, device)
+
+
+def decode_smoothed(data, opts=None, device=None):
+    from . import engine
+    return engine.decode_smoothed(data, opts, device)
+
+
+def smooth_many(datas, opts=None, workers=4, optimize=False, device=None):
+    from . import batch
+    return batch.smooth_many(datas, opts, workers, optimize, device)
+
+
+def smooth_plane_batch(coefs, qtbl, flags, niter, luma=True, device=None):
+    from . import batch
+    return batch.smooth_plane_batch(coefs, qtbl, flags, niter, luma, device)
+
+
+def smooth_image_batch(imgs, opts=None, device=None):
+    from . import batch
+    return batch.smooth_image_batch(imgs, opts, device)

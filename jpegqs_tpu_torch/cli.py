@@ -3,9 +3,11 @@ quality ladder, marker-copy policy and exit codes as ``jpegqs_tpu.cli``
 (reference: quantsmooth.c:288-393 parser, 471-489 help text; exit 0
 ok, 1 usage/IO error, 2 libjpeg warnings).  ``--backend`` picks the
 device: ``cuda`` (the default) or ``cpu`` (the plain PyTorch
-versions).
+versions); ``--batch`` smooths many files through the bucketed batch
+pipeline (batch.py) into an output directory.
 
     python -m jpegqs_tpu_torch.cli -q 3 -n 3 input.jpg output.jpg
+    python -m jpegqs_tpu_torch.cli --batch -q 3 a.jpg b.jpg c.jpg outdir
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ Options:
   -c, --copy n      Marker copy: 0 - none, 1 - comments, 2 - all (default)
       --backend s   Device: cuda (default) or cpu
       --trace dir   Write a torch.profiler trace of the smoothing phase
-      --batch       Batch mode (not ported yet)
+      --batch       Batch mode: inputs... outdir -- smooth many files
+                    through the bucketed batch pipeline (batch.py)
 """
 
 
@@ -108,10 +111,7 @@ def main(argv=None) -> int:
     except SystemExit as e:
         print(e, file=sys.stderr)
         return 1
-    if opts["batch"]:
-        raise NotImplementedError(
-            "--batch is not yet ported (ROADMAP A12)")
-    if len(pos) != 2:
+    if (len(pos) < 2) if opts["batch"] else (len(pos) != 2):
         sys.stderr.write(HELP)
         return 1
     backend = opts["backend"] or "cuda"
@@ -127,6 +127,8 @@ def main(argv=None) -> int:
     niter = opts["niter"] if opts["niter"] >= 0 else 3
     info = opts["info"]
     qs_opts = QsOptions(flags=flags, niter=niter, threads=opts["threads"])
+    if opts["batch"]:
+        return _main_batch(pos[:-1], pos[-1], opts, qs_opts, backend)
 
     from .host.jpegio import JpegCoefFile
     from . import engine
@@ -210,6 +212,61 @@ def main(argv=None) -> int:
     # libjpeg warned (damaged input etc.) -> exit 2, like the reference
     # (quantsmooth.c:626: jsrcerr.num_warnings + jdsterr.num_warnings)
     return 2 if num_warnings else 0
+
+
+def _main_batch(infiles, outdir, opts, qs_opts, backend) -> int:
+    """--batch: smooth many files through the bucketed corpus pipeline
+    (batch.smooth_corpus) into an output directory, each output under its
+    input's basename."""
+    from .batch import smooth_corpus
+
+    names = [os.path.basename(p) for p in infiles]
+    dup = {n for n in names if names.count(n) > 1}
+    if dup:
+        print(f"{PROGNAME}: duplicate output names in batch: "
+              f"{sorted(dup)[0]} (outputs are written to outdir by "
+              f"basename)", file=sys.stderr)
+        return 1
+    datas = []
+    for p in infiles:
+        try:
+            with open(p, "rb") as f:
+                datas.append(f.read())
+        except OSError:
+            print(f'{PROGNAME}: can\'t open input file "{p}"',
+                  file=sys.stderr)
+            return 1
+    try:
+        os.makedirs(outdir, exist_ok=True)
+    except OSError:
+        print(f'{PROGNAME}: can\'t create output directory "{outdir}"',
+              file=sys.stderr)
+        return 1
+    t0 = time.monotonic()
+    warnings_out = []
+    try:
+        outs = smooth_corpus(datas, qs_opts,
+                             optimize=bool(opts["optimize"]),
+                             copy_markers=opts["copy"],
+                             warnings_out=warnings_out, device=backend)
+    except (ValueError, RuntimeError) as e:
+        print(f"{PROGNAME}: {e}", file=sys.stderr)
+        return 1
+    elapsed = (time.monotonic() - t0) * 1000
+    for name, out in zip(names, outs):
+        dest = os.path.join(outdir, name)
+        try:
+            with open(dest, "wb") as f:
+                f.write(out)
+        except OSError:
+            print(f'{PROGNAME}: can\'t open output file "{dest}"',
+                  file=sys.stderr)
+            return 1
+    if opts["info"] & 8:
+        print(f"time: {elapsed:.3f} ms ({len(outs)} files)",
+              file=sys.stderr)
+    # exit 2 when any file produced libjpeg warnings (quantsmooth.c:626)
+    return 2 if (warnings_out and warnings_out[0]) else 0
 
 
 def _traced_smooth(engine, img, qs_opts, backend, trace_dir):

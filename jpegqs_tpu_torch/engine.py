@@ -40,9 +40,12 @@ exchanges of the ghost pixel lines.
 
 Entropy decode/encode stays on the host (host/jpegio.py).  Output
 planes, upsampled planes and the stop flag are bit-identical to
-``jpegqs_tpu.engine``.  Entry points run on the card unless the caller
-passes ``device="cpu"``, which runs the kernels' plain PyTorch
-versions; without a card they raise.
+``jpegqs_tpu.engine``.  ``decode_smoothed`` decodes the smoothed planes to
+pixels on the device (ops/colorout.py: B1 and exact int32 glue); the
+batch engine (batch.py) runs ``run_image`` over many images at once.
+Entry points run on the card unless the caller passes ``device="cpu"``,
+which runs the kernels' plain PyTorch versions; without a card they
+raise.
 """
 
 from __future__ import annotations
@@ -106,13 +109,14 @@ def int16_wrap(x):
     return x.to(I16).to(I32)
 
 
-def dequant(coef16, qraw):
+def dequant(coef16, qraw, n=1):
     """Iter-0 dequantization with the crafted-file guard
-    (quantsmooth.h:2596-2610; engine._dequant_stage): coef16 int16[B, 64]
-    -> (planar int16-wrapped int32[64, B], badv bool scalar tensor)."""
+    (quantsmooth.h:2596-2610; engine._dequant_stage): coef16 int16[B, 64],
+    n images back to back -> (planar int16-wrapped int32[64, B], badv
+    bool[n], the guard of each image)."""
     prod = (coef16.to(I32).T * qraw[:, None]).contiguous()   # planar [64, B]
     # the guard: OR-reduce(prod + 0x800) >> 12 != 0 (arithmetic shift)
-    badv = ((prod + 0x800) >> 12).ne(0).any()
+    badv = ((prod + 0x800) >> 12).ne(0).reshape(64, n, -1).any(2).any(0)
     return int16_wrap(prod), badv
 
 
@@ -128,19 +132,23 @@ def _do_rebalance(flags, luma) -> bool:
 
 
 def component_smooth(coef16, qraw, div, x1, qshr, image2=None, *, hb, wb,
-                     flags, niter, luma, extra_refresh=0):
-    """Full smoothing of one component plane on the device of its inputs
-    (the port of engine._component_smooth_body).
+                     flags, niter, luma, extra_refresh=0, n=1):
+    """Full smoothing of one component plane, or of the same component of
+    ``n`` same-shape images back to back on the block axis, on the device
+    of its inputs (the port of engine._component_smooth_body and of
+    batch._batch_component).
 
-    coef16 int16[B, 64] (quantized, straight from entropy decode); qraw
-    int32[64] raw quantizers; div/x1/qshr from make_quant_tables; image2
-    int32[100, B] the downsampled-luma halos when the JOINT_YUV preamble
-    runs, else None.  ``extra_refresh``: the last pass also emits its
-    pixels (a colour path reads them).  Returns (coef int16-range
-    int32[B, 64], pixels int32[64, B] of the final coefficients before
-    the fallback and clamp -- or None without extra_refresh --, badv
-    bool scalar tensor)."""
-    coef, badv = dequant(coef16, qraw)
+    coef16 int16[B, 64] (quantized, straight from entropy decode; B = n *
+    hb * wb); qraw int32[64] raw quantizers; div/x1/qshr from
+    make_quant_tables; image2 int32[100, B] the downsampled-luma halos
+    when the JOINT_YUV preamble runs, else None.  ``extra_refresh``: the
+    last pass also emits its pixels (a colour path reads them).  The
+    kernels take each image's edges from ``b % (hb * wb)``, so an image's
+    result does not depend on its neighbours on the axis.  Returns (coef
+    int16-range int32[B, 64], pixels int32[64, B] of the final
+    coefficients before the fallback and clamp -- or None without
+    extra_refresh --, badv bool[n], each image's guard)."""
+    coef, badv = dequant(coef16, qraw, n)
     coef_dq = coef
     do_reb = _do_rebalance(flags, luma)
     fused = image2 is not None or bool(flags & LOW_QUALITY)
@@ -157,8 +165,10 @@ def component_smooth(coef16, qraw, div, x1, qshr, image2=None, *, hb, wb,
                 want_pix=keep)
         if keep:
             pix = new_pix
-    # crafted-file fallback: keep the plain dequantized coefficients
-    coef = torch.where(badv, coef_dq, coef)
+    # crafted-file fallback, per image: keep the plain dequantized
+    # coefficients
+    coef = torch.where(badv[None, :, None], coef_dq.reshape(64, n, -1),
+                       coef.reshape(64, n, -1)).reshape(64, -1)
     return (torch.clamp(coef, -1023, 1023).T,
             pix if extra_refresh else None, badv)
 
@@ -230,19 +240,66 @@ def plan_image(img, opts: QsOptions):
                      img_w=img.width, img_h=img.height, ws=ws, hs=hs)
 
 
-def upload(img, plans, device):
-    """Device inputs per planned component: (coef16, qraw, div, x1,
-    qshr).  Kept apart from the run so callers can time device work."""
+def stack_to(arrays, dev):
+    """Host arrays of one shape but the first axis, stacked on that axis,
+    on ``dev`` without waiting for the card.  On a CUDA device they are
+    copied into one pinned staging buffer, which the caching host
+    allocator hands out again from call to call, and the buffer goes over
+    in one asynchronous copy: a blocking copy would wait for the work
+    already queued, and a fresh host stack costs a page fault every 4 KB
+    (tools/time_batch_host.py; PERF.md)."""
+    if dev.type != "cuda":
+        return torch.from_numpy(np.concatenate(arrays))
+    first = torch.from_numpy(np.ascontiguousarray(arrays[0]))
+    host = torch.empty((sum(len(a) for a in arrays),) + first.shape[1:],
+                       dtype=first.dtype, pin_memory=True)
+    row = 0
+    for a in arrays:
+        host[row:row + len(a)] = torch.from_numpy(np.ascontiguousarray(a))
+        row += len(a)
+    return host.to(dev, non_blocking=True)
+
+
+def upload(imgs, plans, device):
+    """Device inputs per planned component of images of one plan:
+    (coef16 int16[n*B, 64], each image's coefficients back to back on the
+    block axis, qraw, div, x1, qshr).  Kept apart from the run so callers
+    can time device work."""
     inputs = []
     for p in plans:
-        comp = img.components[p.ci]
-        coef16 = np.ascontiguousarray(comp.coefs, np.int16).reshape(
-            p.hb * p.wb, 64)
+        coef16 = stack_to([np.asarray(im.components[p.ci].coefs,
+                                      np.int16).reshape(p.hb * p.wb, 64)
+                           for im in imgs], device)
         tabs = (p.qraw, *make_quant_tables(p.qraw))
-        inputs.append((torch.from_numpy(coef16).to(device),
-                       *(torch.from_numpy(np.ascontiguousarray(t)).to(device)
-                         for t in tabs)))
+        inputs.append((coef16, *(stack_to([t], device) for t in tabs)))
     return inputs
+
+
+def download(tensors):
+    """Queue host copies of tensors on one device; returns ``fetch() ->
+    [numpy arrays]``.  From a CUDA device the copies go into pinned
+    staging buffers behind the work queued so far, and an event marks
+    their end: ``fetch()`` waits for that event alone, not for work
+    queued after this call, then makes one host copy of each (the staging
+    buffers go back to the caching host allocator).  Pinned staging is
+    faster than a pageable copy (tools/time_batch_host.py; PERF.md)."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return lambda: [t.numpy() for t in tensors]
+    dev = tensors[0].device
+    staged = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+              for t in tensors]
+    for h, t in zip(staged, tensors):
+        # contiguous on the card first: with the plane batch's transposed
+        # output the download took 2.4x as long end to end (PERF.md)
+        h.copy_(t.contiguous(), non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+
+    def fetch():
+        done.synchronize()
+        return [torch.empty(h.shape, dtype=h.dtype).copy_(h).numpy()
+                for h in staged]
+    return fetch
 
 
 def fdct_round_i16(fblocks, hb, wb):
@@ -254,10 +311,12 @@ def fdct_round_i16(fblocks, hb, wb):
     return c.to(I16).T.contiguous().reshape(hb, wb, 64)
 
 
-def _upsample_fdct(pix, image2, image1, plan: ImagePlan):
-    """UPSAMPLE_UV of one chroma component: its final pixels, the
-    downsampled luma (image2) and the luma pixels (image1) -> int16
-    [hb_l, wb_l, 64] (engine._image_smooth_impl's image1 branch)."""
+def _upsample_fdct(pix, image2, image1, plan: ImagePlan, n=1):
+    """UPSAMPLE_UV of one chroma component of n images: its final pixels,
+    the downsampled luma (image2) and the luma pixels (image1) -> int16
+    [n, hb_l, wb_l, 64] (engine._image_smooth_impl's image1 branch; the
+    vmapped one of batch._image_batch_impl).  The plane form (sampling
+    factors above 2) takes one image."""
     hbl, wbl = plan.comps[0].hb, plan.comps[0].wb
     hbc, wbc = plan.comps[1].hb, plan.comps[1].wb
     if plan.ds_blocks:
@@ -265,10 +324,12 @@ def _upsample_fdct(pix, image2, image1, plan: ImagePlan):
             planar.blocks_halo10(pix.reshape(8, 8, -1), hbc, wbc),
             image2.reshape(10, 10, -1), image1.reshape(8, 8, -1),
             plan.img_w, plan.img_h, plan.ws, plan.hs, hbl, wbl, hbc, wbc)
-        return fdct_round_i16((up - CENTERJSAMPLE).to(F32), hbl, wbl)
+        return fdct_round_i16((up - CENTERJSAMPLE).to(F32), n * hbl,
+                              wbl).reshape(n, hbl, wbl, 64)
+    assert n == 1, "the plane form takes one image"
     return upsample_fdct_plane(planar.pix_to_plane(pix, hbc, wbc), image2,
                                image1, plan.img_w, plan.img_h, plan.ws,
-                               plan.hs, hbl, wbl)
+                               plan.hs, hbl, wbl)[None]
 
 
 def upsample_fdct_plane(padded_chroma, image2, image1, img_w, img_h, ws, hs,
@@ -285,11 +346,12 @@ def upsample_fdct_plane(padded_chroma, image2, image1, img_w, img_h, ws, hs,
 
 
 def _luma_products(pix, plan: ImagePlan):
-    """After the luma: (image1, image2, image2 halos [100, Bc]) for the
+    """After the luma: (image1, image2, image2 halos [100, n*Bc]) for the
     colour paths (engine._image_smooth_impl's need_downsample branch).
     image2 is the downsampled luma as halos in block form, as a padded
     plane in plane form; image1 the luma pixels (blocks or plane) when
-    UPSAMPLE_UV needs them, else None."""
+    UPSAMPLE_UV needs them, else None.  In block form pix may hold n
+    images back to back; the plane form takes one."""
     hbl, wbl = plan.comps[0].hb, plan.comps[0].wb
     hbc, wbc = plan.comps[1].hb, plan.comps[1].wb
     if plan.ds_blocks:
@@ -303,15 +365,21 @@ def _luma_products(pix, plan: ImagePlan):
     return (luma if plan.image1_live else None), image2, halo
 
 
-def run_image(plan: ImagePlan, inputs):
-    """Whole-image device run (engine._image_smooth_impl): component
-    sequencing, the colour paths and on-device stop propagation -- once
-    a component trips the dequantization guard, later components come
-    out plain-dequantized (unclamped).  Returns (int16[B, 64] outputs,
-    badv tensors, {component index: upsampled int16[hb_l, wb_l, 64]})."""
+def run_image(plan: ImagePlan, inputs, n=1):
+    """Whole-image device run (engine._image_smooth_impl), of one image
+    or of ``n`` images of the same plan back to back on each component's
+    block axis (batch._image_batch_impl): component sequencing, the
+    colour paths and on-device stop propagation, per image -- once a
+    component trips an image's dequantization guard, that image's later
+    components come out plain-dequantized (unclamped).  inputs: per
+    planned component (coef16 int16[n*B, 64], qraw, div, x1, qshr), as
+    ``upload`` makes them.  Every launch is queued on the current stream
+    and nothing waits for the card; the count of launches does not
+    depend on n.  Returns (int16[n*B, 64] outputs, badv bool[n] tensors,
+    {component index: upsampled int16[n, hb_l, wb_l, 64]})."""
     device = inputs[0][0].device
     flags = plan.flags
-    stop = torch.zeros((), dtype=torch.bool, device=device)
+    stop = torch.zeros((n,), dtype=torch.bool, device=device)
     image1 = image2 = image2_halo = None
     outs, badvs, ups = [], [], {}
     for k, (p, (coef16, qraw, div, x1, qshr)) in enumerate(
@@ -324,12 +392,14 @@ def run_image(plan: ImagePlan, inputs):
         coef, pix, badv = component_smooth(
             coef16, qraw, div, x1, qshr, image2_halo if joint else None,
             hb=p.hb, wb=p.wb, flags=flags, niter=p.niter, luma=p.luma,
-            extra_refresh=p.extra_refresh)
-        outs.append(torch.where(stop, dq16, coef.to(I16)))
+            extra_refresh=p.extra_refresh, n=n)
+        outs.append(torch.where(stop[:, None, None], dq16.reshape(n, -1, 64),
+                                coef.to(I16).reshape(n, -1, 64)).reshape(
+                                    -1, 64))
         badvs.append(badv)
         stop = stop | badv
         if image1 is not None:
-            ups[p.ci] = _upsample_fdct(pix, image2, image1, plan)
+            ups[p.ci] = _upsample_fdct(pix, image2, image1, plan, n)
         elif k == 0 and plan.need_downsample and len(plan.comps) > 1:
             # (len guard: at 4:4:4 + UPSAMPLE_UV + niter 0 the chroma
             # components drop out entirely, quantsmooth.h:2542, leaving
@@ -338,23 +408,55 @@ def run_image(plan: ImagePlan, inputs):
     return outs, badvs, ups
 
 
+def dispatch(imgs, plan: ImagePlan, device):
+    """Queue the whole-image run of images of one plan (``run_image`` with
+    n = len(imgs); the plane form takes one image) and the copies of its
+    results to the host.  Nothing here waits for the card, so a caller
+    can queue more work while this run computes.  Returns ``assemble() ->
+    [SmoothResult]``, which waits for this run's copies alone: components
+    outside the plan keep their input coefficients, an image stops on the
+    plan's static stop or its own guard, and its upsampled planes are set
+    only where it did not stop."""
+    n = len(imgs)
+    fetch, n_up, n_bad = (lambda: []), 0, 0
+    if plan.comps:
+        outs, badvs, ups = run_image(plan, upload(imgs, plan.comps, device),
+                                     n)
+        up = [ups[1], ups[2]] if 1 in ups and 2 in ups else []
+        bad = [torch.stack(badvs).any(0)] if badvs else []
+        n_up, n_bad = len(up), len(bad)
+        fetch = download(outs + up + bad)
+
+    def assemble():
+        host = fetch()
+        planned = {p.ci: o for p, o in zip(plan.comps, host)}
+        up = host[len(plan.comps):len(plan.comps) + n_up]
+        bad = host[-1] if n_bad else np.zeros(n, bool)
+        results = []
+        for i, im in enumerate(imgs):
+            res = SmoothResult()
+            res.coefs = [
+                planned[ci].reshape(n, c.height_in_blocks,
+                                    c.width_in_blocks, 64)[i]
+                if ci in planned else np.asarray(c.coefs, np.int16).copy()
+                for ci, c in enumerate(im.components)]
+            res.stop = int(plan.static_stop or bool(bad[i]))
+            if not res.stop and up:
+                res.upsampled = (up[0][i], up[1][i])
+            results.append(res)
+        return results
+
+    return assemble
+
+
 def _smooth_fused(img, opts: QsOptions, device) -> SmoothResult:
-    res = SmoothResult()
-    res.coefs = [np.asarray(c.coefs, dtype=np.int16).copy()
-                 for c in img.components]
     plan = plan_image(img, opts)
     if plan is None:
+        res = SmoothResult()
+        res.coefs = [np.asarray(c.coefs, dtype=np.int16).copy()
+                     for c in img.components]
         return res
-    if not plan.comps:
-        res.stop = int(plan.static_stop)
-        return res
-    outs, badvs, ups = run_image(plan, upload(img, plan.comps, device))
-    for p, out in zip(plan.comps, outs):
-        res.coefs[p.ci] = out.cpu().numpy().reshape(p.hb, p.wb, 64)
-    res.stop = int(plan.static_stop or any(bool(b) for b in badvs))
-    if not res.stop and 1 in ups and 2 in ups:
-        res.upsampled = (ups[1].cpu().numpy(), ups[2].cpu().numpy())
-    return res
+    return dispatch([img], plan, device)()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -724,6 +826,77 @@ def _smooth_degraded(img, opts: QsOptions) -> SmoothResult:
         res.coefs[ci] = (c * qraw[None, :]).astype(np.int16).reshape(
             hb, wb, 64)
     return res
+
+
+def decode_smoothed(data: bytes, opts: QsOptions = None,
+                    device=None) -> np.ndarray:
+    """Decode a JPEG with smoothing applied, the library decode path
+    (reference: jpegqs_start_decompress, quantsmooth.h:2882-2905,
+    example.c:78-144): uint8 pixels (H, W) or (H, W, 3), on the card
+    unless ``device="cpu"``.  The pixels are decoded on the device from
+    the smoothed coefficient planes (ops/colorout.py), with no re-encode;
+    layouts it does not model (non-YCbCr with several components, CMYK,
+    sampling other than 1x1 / 2x1 / 2x2) go through a re-encode and
+    libjpeg's decode.  Both give the same pixels."""
+    from .host.jpegio import decode_pixels, read_coefficients
+
+    dev = resolve_device(device)
+    if opts is None:
+        opts = QsOptions.from_quality(3, 3)
+    img = read_coefficients(data)
+    res = smooth(img, opts, dev)
+    out = _decode_native(img, res, dev)
+    if out is not None:
+        return out
+    return decode_pixels(_save_result(data, res))
+
+
+def _decode_native(img, res: SmoothResult, device=None):
+    """Device pixel decode of a SmoothResult (engine._decode_native), or
+    None when the layout needs the libjpeg fallback (decode_smoothed).
+    One B1 launch per component on the card."""
+    from .ops import colorout
+
+    dev = resolve_device(device)
+    layout = decode_layout(img, res)
+    if layout is None:
+        return None
+    planes, dims, ws, hs = layout
+    planes = [torch.from_numpy(np.ascontiguousarray(p, np.int16)).to(dev)
+              for p in planes]
+    return colorout.decode(planes, dims, ws, hs, img.height,
+                           img.width).cpu().numpy()
+
+
+def decode_layout(img, res: SmoothResult):
+    """What the device decode of a SmoothResult reads: (planes, dims, ws,
+    hs) -- the gray plane, or the Y, Cb and Cr planes (the upsampled ones
+    after UPSAMPLE_UV), each with its (hb, wb, oh, ow), and the chroma's
+    upsampling factors -- or None where the layout needs the libjpeg
+    fallback: a non-YCbCr image of several components, or sampling other
+    than 1x1 / 2x1 / 2x2 with 1x1 chroma."""
+    comps = img.components
+    H, W = img.height, img.width
+    if len(comps) == 1:
+        c = comps[0]
+        return ((res.coefs[0],), ((c.height_in_blocks, c.width_in_blocks, H,
+                                   W),), 1, 1)
+    if len(comps) != 3 or not img.is_ycbcr:
+        return None
+    if res.upsampled is not None:
+        # UPSAMPLE_UV output: all components at luma dims, 1x1 sampled
+        hb, wb = comps[0].height_in_blocks, comps[0].width_in_blocks
+        return ((res.coefs[0], res.upsampled[0], res.upsampled[1]),
+                ((hb, wb, H, W),) * 3, 1, 1)
+    ws, hs = comps[0].h_samp_factor, comps[0].v_samp_factor
+    if (ws, hs) not in ((1, 1), (2, 1), (2, 2)):
+        return None
+    if any(c.h_samp_factor != 1 or c.v_samp_factor != 1 for c in comps[1:]):
+        return None
+    dims = tuple((c.height_in_blocks, c.width_in_blocks,
+                  -(-H * c.v_samp_factor // hs), -(-W * c.h_samp_factor // ws))
+                 for c in comps)
+    return tuple(res.coefs), dims, ws, hs
 
 
 def _save_result(data: bytes, res: SmoothResult,

@@ -178,8 +178,6 @@ def solve_rebalance_pix(coef, pix, div, x1, qshr, flags, do_rebalance, hb,
     B = coef.shape[1]
     tab = solver_tables(flags, coef.device)
     if _is_cpu(coef, pix, div, x1, qshr, tab):
-        if B != hb * wb:
-            raise ValueError("the plain version takes one image")
         return planar.solve_rebalance_pix(coef, pix, div, x1, qshr, tab,
                                           do_rebalance, hb, wb, want_pix)
     _check(coef, torch.int32, (64, B), "coef")

@@ -15,6 +15,10 @@ kernels (csrc/solver.cu) and the block-wise colour glue.
   as this same eager torch on the card (the JAX package runs them as XLA
   ops, outside any Pallas kernel).
 
+The passes from pixels and the block-form colour glue take several
+same-shape images back to back on the block axis (the batch engine),
+each with its own image edges, in the same number of torch ops as one.
+
 Layouts follow the JAX package's public functions:
 
 - pixel blocks:       [8, 8, B]    (row, col, block)
@@ -72,20 +76,19 @@ GROUPS = _make_groups()   # 14 groups, sizes 1..8; each opens a refresh
 
 
 def borders_from_blocks(pix, hb, wb):
-    """Solver border lines from neighbor blocks: pix int32[8, 8, hb*wb]
-    -> (top, bottom, left, right), each int32[8, B].
+    """Solver border lines from neighbor blocks: pix int32[8, 8, B] ->
+    (top, bottom, left, right), each int32[8, B].  B may hold several
+    hb x wb images back to back; each has its own edges.
 
     Models the padded-plane reads (quantsmooth.h:1396-1401) with edge
     replication (2612-2620): at the image edge the adjacent line is the
     block's own edge line."""
-    p = pix.reshape(8, 8, hb, wb)
-    top = torch.cat([p[0, :, :1, :], p[7, :, :-1, :]], dim=1)
-    bottom = torch.cat([p[0, :, 1:, :], p[7, :, -1:, :]], dim=1)
-    left = torch.cat([p[:, 0, :, :1], p[:, 7, :, :-1]], dim=2)
-    right = torch.cat([p[:, 0, :, 1:], p[:, 7, :, -1:]], dim=2)
-    B = hb * wb
-    return (top.reshape(8, B), bottom.reshape(8, B),
-            left.reshape(8, B), right.reshape(8, B))
+    p = pix.reshape(8, 8, -1, hb, wb)
+    top = torch.cat([p[0, :, :, :1], p[7, :, :, :-1]], dim=2)
+    bottom = torch.cat([p[0, :, :, 1:], p[7, :, :, -1:]], dim=2)
+    left = torch.cat([p[:, 0, ..., :1], p[:, 7, ..., :-1]], dim=3)
+    right = torch.cat([p[:, 0, ..., 1:], p[:, 7, ..., -1:]], dim=3)
+    return tuple(x.reshape(8, -1) for x in (top, bottom, left, right))
 
 
 def block_diffs_p(pix, borders, nt):
@@ -436,52 +439,55 @@ def solve_range_pix(coef, pix, image2, div, x1, qshr, tab, flags,
 # ---------------------------------------------------------------------------
 
 def downsample_blocks(pix_l, hb_l, wb_l, hb_c, wb_c, ws, hs):
-    """Box-downsample luma blocks int32[8, 8, hb_l*wb_l] straight to
-    chroma-sized blocks int32[8, 8, hb_c*wb_c] (reference:
-    quantsmooth.h:2753-2813, even-box path), ws, hs in {1, 2}; an odd
-    block grid is edge-extended by its last computed line, as the
-    reference's replicate tail does."""
+    """Box-downsample luma blocks int32[8, 8, n*hb_l*wb_l] straight to
+    chroma-sized blocks int32[8, 8, n*hb_c*wb_c] (reference:
+    quantsmooth.h:2753-2813, even-box path), ws, hs in {1, 2}, for each
+    of n images back to back; an odd block grid is edge-extended by its
+    last computed line, as the reference's replicate tail does."""
     assert ws in (1, 2) and hs in (1, 2)
     if ws == 1 and hs == 1:
         return pix_l
-    p4 = pix_l.reshape(8, 8, hb_l, wb_l)
+    p5 = pix_l.reshape(8, 8, -1, hb_l, wb_l)
+    n = p5.shape[2]
     rh, rw = 8 // hs, 8 // ws
     if hs == 2 and ws == 2:
-        d = (p4[0::2, 0::2] + p4[0::2, 1::2]
-             + p4[1::2, 0::2] + p4[1::2, 1::2] + 2) >> 2
+        d = (p5[0::2, 0::2] + p5[0::2, 1::2]
+             + p5[1::2, 0::2] + p5[1::2, 1::2] + 2) >> 2
     elif hs == 2:
-        d = (p4[0::2] + p4[1::2] + 1) >> 1
+        d = (p5[0::2] + p5[1::2] + 1) >> 1
     else:
-        d = (p4[:, 0::2] + p4[:, 1::2] + 1) >> 1
+        d = (p5[:, 0::2] + p5[:, 1::2] + 1) >> 1
     if hs == 2 and hb_l % 2:
-        d = torch.cat([d, d[rh - 1:rh, :, -1:, :].expand(rh, -1, -1, -1)],
-                      dim=2)
+        d = torch.cat([d, d[rh - 1:rh, :, :, -1:].expand(rh, -1, -1, -1,
+                                                          -1)], dim=3)
     if ws == 2 and wb_l % 2:
-        d = torch.cat([d, d[:, rw - 1:rw, :, -1:].expand(-1, rw, -1, -1)],
-                      dim=3)
-    t = d.reshape(rh, rw, hb_c, hs, wb_c, ws)
-    return t.permute(3, 0, 5, 1, 2, 4).reshape(8, 8, hb_c * wb_c)
+        d = torch.cat([d, d[:, rw - 1:rw, ..., -1:].expand(-1, rw, -1, -1,
+                                                            -1)], dim=4)
+    t = d.reshape(rh, rw, n, hb_c, hs, wb_c, ws)
+    return t.permute(4, 0, 6, 1, 2, 3, 5).reshape(8, 8, n * hb_c * wb_c)
 
 
 def _lowres_to_hires_blocks(x, hb_l, wb_l, hb_c, wb_c, ws, hs):
-    """Broadcast a chroma-grid quantity [8, 8, Bc] to the luma grid
-    [8, 8, Bl]: full-res pixel (y, x) reads low-res (y//hs, x//ws)."""
+    """Broadcast a chroma-grid quantity [8, 8, n*Bc] to the luma grid
+    [8, 8, n*Bl]: full-res pixel (y, x) reads low-res (y//hs, x//ws)."""
     rh, rw = 8 // hs, 8 // ws
-    t = x.reshape(hs, rh, ws, rw, hb_c, wb_c)
-    t = t.permute(1, 3, 4, 0, 5, 2).reshape(rh, rw, hb_c * hs, wb_c * ws)
-    t = t[:, :, :hb_l, :wb_l]
+    t = x.reshape(hs, rh, ws, rw, -1, hb_c, wb_c)
+    n = t.shape[4]
+    t = t.permute(1, 3, 4, 5, 0, 6, 2).reshape(rh, rw, n, hb_c * hs,
+                                               wb_c * ws)
+    t = t[:, :, :, :hb_l, :wb_l]
     t = t.repeat_interleave(hs, dim=0).repeat_interleave(ws, dim=1)
-    return t.reshape(8, 8, hb_l * wb_l)
+    return t.reshape(8, 8, n * hb_l * wb_l)
 
 
 def upsample_chroma_blocks(chroma_halo, luma2_halo, luma_pix, img_w, img_h,
                            ws, hs, hb_l, wb_l, hb_c, wb_c, row0=0,
                            hb_l_total=None):
     """UPSAMPLE_UV in block form (reference: quantsmooth.h:1851-2394,
-    2691-2752): chroma_halo / luma2_halo int32[10, 10, Bc] (the
+    2691-2752): chroma_halo / luma2_halo int32[10, 10, n*Bc] (the
     component's pixels and the downsampled luma), luma_pix
-    int32[8, 8, Bl]; ws, hs in {1, 2}.  Returns the full-resolution
-    chroma pixels int32[8, 8, Bl].
+    int32[8, 8, n*Bl], n images back to back; ws, hs in {1, 2}.  Returns
+    the full-resolution chroma pixels int32[8, 8, n*Bl].
 
     Per low-res pixel the JOINT regression slope gives offset = chroma -
     luma_ds*scale + 0.5; the output is trunc(luma*scale + offset)
@@ -510,31 +516,31 @@ def upsample_chroma_blocks(chroma_halo, luma2_halo, luma_pix, img_w, img_h,
     val = luma_pix.to(F32) * scale_hi + offset_hi
     out = torch.clamp(torch.trunc(val), 0, 255).to(I32)
 
-    o4 = out.reshape(8, 8, hb_l, wb_l)
+    o5 = out.reshape(8, 8, -1, hb_l, wb_l)
     hh, ww = hb_l_total * 8, wb_l * 8
     dev = out.device
-    row_g = (torch.arange(8, device=dev).reshape(8, 1, 1, 1)
-             + 8 * torch.arange(hb_l, device=dev).reshape(1, 1, hb_l, 1)
+    row_g = (torch.arange(8, device=dev).reshape(8, 1, 1, 1, 1)
+             + 8 * torch.arange(hb_l, device=dev).reshape(1, 1, 1, hb_l, 1)
              + row0)
-    col_g = (torch.arange(8, device=dev).reshape(1, 8, 1, 1)
-             + 8 * torch.arange(wb_l, device=dev).reshape(1, 1, 1, wb_l))
+    col_g = (torch.arange(8, device=dev).reshape(1, 8, 1, 1, 1)
+             + 8 * torch.arange(wb_l, device=dev).reshape(1, 1, 1, 1, wb_l))
     if w1 * ws < ww:
         # right-edge replicate from col w1*ws-1, first min(8,h1)*hs rows
         # only (reference quirk, quantsmooth.h:1861 + 2390-2393)
         rep_rows = min(min(8, h1) * hs, min(h1 * hs, hh))
         sc = w1 * ws - 1
-        src_col = o4[:, sc % 8, :, min(sc // 8, wb_l - 1)]     # [8, hb_l]
+        src_col = o5[:, sc % 8, :, :, min(sc // 8, wb_l - 1)]  # [8, n, hb_l]
         mask = (row_g < rep_rows) & (col_g >= w1 * ws)
-        o4 = torch.where(mask, src_col[:, None, :, None], o4)
+        o5 = torch.where(mask, src_col[:, None, :, :, None], o5)
     if h1 * hs < hh:
         # bottom replicate from row h1*hs-1 (quantsmooth.h:2729-2730); a
         # shard that does not hold that row masks its result away
         sr = h1 * hs - 1
         lb = min(max(sr // 8 - row0 // 8, 0), hb_l - 1)
-        src_row = o4[sr % 8, :, lb]                            # [8, wb_l]
+        src_row = o5[sr % 8, :, :, lb]                          # [8, n, wb_l]
         mask = row_g >= h1 * hs
-        o4 = torch.where(mask, src_row[None, :, None, :], o4)
-    return o4.reshape(8, 8, hb_l * wb_l)
+        o5 = torch.where(mask, src_row[None, :, :, None, :], o5)
+    return o5.reshape(8, 8, -1)
 
 
 # ---------------------------------------------------------------------------

@@ -365,3 +365,106 @@ def test_canaries_on_card(cuda):
         want = want + terms[j]
     got = cuda_solver.canary_fold(t(terms)).cpu().numpy()
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _same_result(a, b):
+    return (a.stop == b.stop
+            and all(np.array_equal(x, y) for x, y in zip(a.coefs, b.coefs))
+            and (a.upsampled is None) == (b.upsampled is None)
+            and all(np.array_equal(x, y)
+                    for x, y in zip(a.upsampled or (), b.upsampled or ())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quality", [0, 3, 6])
+@pytest.mark.parametrize("n", [2, 5])
+def test_image_batch_on_card(cuda, quality, n):
+    """smooth_image_batch on the card equals per-image smooth() on the
+    card and the CPU path, with one image's launch counts."""
+    from jpegqs_tpu_torch import QsOptions, batch, engine, synth
+    imgs = [synth.make_image(40, 56, color=True, seed=s) for s in range(n)]
+    opts = QsOptions.from_quality(quality, 3)
+    cuda_solver.reset_launches()
+    got = batch.smooth_image_batch(imgs, opts)
+    counts = dict(cuda_solver.LAUNCHES)
+    cuda_solver.reset_launches()
+    one = engine.smooth(imgs[0], opts)
+    assert counts == cuda_solver.LAUNCHES and counts["idct_pix"] == 3
+    assert _same_result(got[0], one)
+    for im, g in zip(imgs, got):
+        assert _same_result(g, engine.smooth(im, opts))
+        assert _same_result(g, engine.smooth(im, opts, "cpu"))
+    cpu = batch.smooth_image_batch(imgs, opts, device="cpu")
+    assert all(_same_result(a, b) for a, b in zip(got, cpu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quality", [0, 3, 6])
+@pytest.mark.parametrize("n", [2, 5])
+def test_plane_batch_on_card(cuda, quality, n):
+    from jpegqs_tpu_torch import QsOptions, batch, engine, quality_to_flags
+    from jpegqs_tpu_torch import synth
+    imgs = [synth.make_image(40, 48, seed=s) for s in range(n)]
+    coefs = np.stack([im.components[0].coefs for im in imgs])
+    qtbl = imgs[0].components[0].quantval
+    flags = quality_to_flags(quality)
+    got = batch.smooth_plane_batch(coefs, qtbl, flags, 3)
+    cpu = batch.smooth_plane_batch(coefs, qtbl, flags, 3, device="cpu")
+    assert np.array_equal(got, cpu)
+    for i, im in enumerate(imgs):
+        want = engine.smooth(im, QsOptions(flags=flags, niter=3))
+        assert np.array_equal(got[i], want.coefs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,color,sampling,quality", [
+    ((45, 61), False, (2, 2), 3), ((45, 61), True, (2, 2), 3),
+    ((48, 56), True, (2, 2), 6), ((50, 42), True, (2, 1), 5),
+    ((40, 40), True, (1, 1), 5)])
+def test_decode_on_card(cuda, shape, color, sampling, quality):
+    """engine._decode_native on the card equals the CPU path on the same
+    planes, with one B1 launch per component."""
+    from jpegqs_tpu_torch import QsOptions, engine, synth
+    img = synth.make_image(*shape, color=color, seed=4, sampling=sampling)
+    res = engine.smooth(img, QsOptions.from_quality(quality, 2))
+    cuda_solver.reset_launches()
+    got = engine._decode_native(img, res)
+    assert cuda_solver.LAUNCHES["idct_pix"] == len(img.components)
+    assert got.dtype == np.uint8 and got.shape[:2] == shape
+    assert np.array_equal(got, engine._decode_native(img, res, "cpu"))
+
+
+@pytest.mark.cuda
+def test_batches_in_flight_on_card(cuda):
+    """Several batches dispatched before any is assembled (the corpus
+    pipeline's window): their pinned staging buffers are not reused while
+    a copy is queued, so each equals per-image smooth()."""
+    from jpegqs_tpu_torch import QsOptions, batch, engine, synth
+    opts = QsOptions.from_quality(6, 2)
+    chunks = [[synth.make_image(40, 56, color=True, seed=10 * k + s)
+               for s in range(3)] for k in range(4)]
+    pending = [batch._batch_dispatch(imgs, opts, cuda) for imgs in chunks]
+    for imgs, asm in zip(chunks, pending):
+        for im, got in zip(imgs, asm()):
+            assert _same_result(got, engine.smooth(im, opts))
+
+
+@pytest.mark.cuda
+def test_assemble_waits_for_its_own_batch(cuda):
+    """A batch's assemble() waits for its own host copies alone: with a
+    spin of the card queued behind the first batch and a second batch
+    behind that, the first batch's assemble() returns while the card
+    still spins, with that batch's planes."""
+    from jpegqs_tpu_torch import QsOptions, engine, synth
+    opts = QsOptions.from_quality(3, 2)
+    imgs = [synth.make_image(48, 64, seed=s) for s in range(3)]
+    plan = engine.plan_image(imgs[0], opts)
+    first = engine.dispatch(imgs, plan, cuda)
+    torch.cuda._sleep(1 << 30)
+    later = engine.dispatch(imgs, plan, cuda)
+    got = first()
+    spinning = not torch.cuda.current_stream().query()
+    later()
+    assert spinning
+    for im, res in zip(imgs, got):
+        assert _same_result(res, engine.smooth(im, opts, "cpu"))

@@ -166,16 +166,18 @@ def test_cli_matches_jax(tmp_path):
     assert cli.main(["-q", "3", str(src)]) == 1             # usage
     assert cli.main(["--backend", "cpu", "-i", "0",
                      str(tmp_path / "missing.jpg"), str(dst)]) == 1
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--batch", str(src), str(tmp_path)])
+    # --batch writes each input's output under its basename
+    assert cli.main(["--batch", "-i", "0", "--backend", "cpu", str(src),
+                     str(tmp_path / "outdir")]) == 0
+    assert (tmp_path / "outdir" / "in.jpg").read_bytes() == want
 
 
 def test_unported_paths_raise():
     """Every quality level runs (q0 on gray, q5 on 4:2:0 here; the JAX
     comparisons are in tests/test_torch_color.py), and so does a progress
     callback (tests/test_torch_progress.py): one that never cancels
-    leaves the planes as without it.  Only --batch still raises
-    (test_cli_matches_jax)."""
+    leaves the planes as without it.  --batch runs too
+    (test_cli_matches_jax; tests/test_torch_batch.py)."""
     gray = image_from_arrays(jax_jpegio.read_coefficients(_gray()))
     color = image_from_arrays(jax_jpegio.read_coefficients(_c420()))
     for img, q in ((gray, 0), (color, 5)):

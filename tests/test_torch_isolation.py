@@ -1,11 +1,12 @@
 """The port stands alone: no JAX, nothing of jpegqs_tpu.
 
 A fresh interpreter imports every module of jpegqs_tpu_torch and
-chip_smoke and runs the engine on the CPU; neither ``jax`` nor
-``jpegqs_tpu`` may appear in sys.modules.  Also checks chip_smoke's
-golden digests (the SHA-256 of jpegqs_tpu's output planes that the card
-must reproduce) against the JAX package, and that chip_smoke fails
-without a card or without the repository.
+chip_smoke and runs the engine, the batch engine and the decode path on
+the CPU; neither ``jax`` nor ``jpegqs_tpu`` may appear in sys.modules.
+Also checks chip_smoke's golden digests (the SHA-256 of jpegqs_tpu's
+output planes and of its decoded pixels, which the card must reproduce)
+against the JAX package, and that chip_smoke fails without a card or
+without the repository.
 """
 
 import os
@@ -19,6 +20,7 @@ import torch
 
 import chip_smoke
 import jpegqs_tpu_torch
+from jpegqs_tpu_torch import engine
 from jpegqs_tpu import engine as jax_engine
 from jpegqs_tpu.host import jpegio as jax_jpegio
 from jpegqs_tpu.options import QsOptions as JaxOptions
@@ -32,16 +34,26 @@ import sys
 import numpy as np
 import chip_smoke
 import jpegqs_tpu_torch
-from jpegqs_tpu_torch import cli, engine, options, specref, synth
+from jpegqs_tpu_torch import batch, cli, engine, options, specref, synth
 from jpegqs_tpu_torch.host import jpegio
-from jpegqs_tpu_torch.ops import (_build, cuda_solver, dct, joint, planar,
-                                  plane, quant, upsample)
+from jpegqs_tpu_torch.ops import (_build, colorout, cuda_solver, dct, joint,
+                                  planar, plane, quant, upsample)
 for i in (2, 13):       # gray q3 n3; 4:2:0 q6 n3 (JOINT_YUV, UPSAMPLE_UV)
     case = chip_smoke.GOLDEN_CASES[i]
     res = jpegqs_tpu_torch.smooth(chip_smoke.golden_image(case),
                                   chip_smoke.golden_opts(case), device="cpu")
     assert chip_smoke.digest(res.coefs, res.stop, res.upsampled) == \
         chip_smoke.GOLDEN[case[0]]
+    if case[0] in chip_smoke.DECODE_GOLDEN:
+        img = chip_smoke.golden_image(case)
+        px = engine._decode_native(img, res, "cpu")
+        assert chip_smoke.pixel_digest(px) == \
+            chip_smoke.DECODE_GOLDEN[case[0]]
+imgs = [chip_smoke.golden_image(chip_smoke.GOLDEN_CASES[2])] * 2
+out = batch.smooth_image_batch(imgs, chip_smoke.golden_opts(
+    chip_smoke.GOLDEN_CASES[2]), device="cpu")
+assert chip_smoke.digest(out[1].coefs, out[1].stop) == \
+    chip_smoke.GOLDEN[chip_smoke.GOLDEN_CASES[2][0]]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jpegqs_tpu"))
 print("FOREIGN", bad)
@@ -95,6 +107,28 @@ def test_golden_digests_are_the_jax_package_output(case):
     if case[3] and case[1][0] == "synth":   # niter > 0 moves coefficients
         assert any(not np.array_equal(a, c.coefs)
                    for a, c in zip(got.coefs, img.components))
+
+
+_DECODE_CASES = [c for c in chip_smoke.GOLDEN_CASES
+                 if c[0] in chip_smoke.DECODE_GOLDEN]
+
+
+@pytest.mark.parametrize("case", _DECODE_CASES,
+                         ids=[c[0] for c in _DECODE_CASES])
+def test_decode_golden_digests_are_the_jax_package_output(case):
+    """chip_smoke's DECODE_GOLDEN: the SHA-256 of jpegqs_tpu's decoded
+    pixels of the case's smoothed planes; the port's CPU path gives the
+    same pixels."""
+    img = chip_smoke.golden_image(case)
+    opts = chip_smoke.golden_opts(case)
+    jimg = _to_jax_image(img)
+    res = jax_engine.smooth(jimg, JaxOptions(flags=opts.flags,
+                                             niter=opts.niter))
+    want = jax_engine._decode_native(jimg, res)
+    assert chip_smoke.pixel_digest(want) == chip_smoke.DECODE_GOLDEN[case[0]]
+    got = engine._decode_native(img, jpegqs_tpu_torch.smooth(
+        img, opts, device="cpu"), "cpu")
+    assert np.array_equal(got, want)
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
