@@ -72,13 +72,30 @@ on any mismatch:
    n3 over 4: launch counts worked out from the image, bit-identity with
    the single-device run, times beside the single-device ones, the ghost
    exchange's time; and the golden digests through the sharded path;
-12. where the machine has libjpeg's headers, the transcode path,
+12. the 2-D row x column grid on shards of this card: B7 with column
+   edges bit for bit against its plain version on every shard of small
+   random planes on 2-D grids (right and bottom edges mid-shard, ghosts and
+   dead blocks random) and on a shard of the 65520x32 4:2:0 strip, with
+   its time; the strip at q6 n3 and q2 n3 and the 65520x16 gray strip at
+   q3 n3 through ``engine._try_smooth_sharded`` on a 2 x 2 grid of 4
+   shards: launch counts, bit-identity with the single-device run, times;
+13. batch data parallelism: 16 gray frames at q3 n3 through the batch form
+   of ``make_sharded_smooth`` on data 2 x row 2, 8 colour photos at q6 n3
+   through ``smooth_batch_sharded`` on data 2 x row 1, each against
+   ``smooth_image_batch`` on one device, times; ``dryrun_multichip(4)``;
+14. the multi-process engine: the launcher's --local 2 (two gloo ranks on
+   this card, two shards each) on the 4032x3024 photo and the strip at q6
+   n3 and on two gray frames a rank at q3 n3 (smooth_batch_distributed),
+   each against the single-process run, with rank 0's launches and the
+   host time of its exchanges; NCCL where there are two cards;
+15. where the machine has libjpeg's headers, the transcode path,
    smooth_many and the CLI's --batch against smooth_jpeg_bytes.
 
 Its last line is {"ok": true, "device": {...}}; the line before it is
 nvidia-smi's name and power limit, and before that one JSON line of
 per-kernel numbers (B1-B7, T3, T1/T2), and before that one summary line
-per main-path, batch, progress-path and sharded run.  Without a CUDA device it
+per main-path, batch, progress-path, sharded, 2-D grid, batch data
+parallel and multi-process run.  Without a CUDA device it
 exits 1 and prints no result.
 """
 
@@ -318,16 +335,18 @@ def kernel_ms(fn, reps=5):
     torch.profiler over ``reps`` warm runs, the kernel's time summed over
     the launches the profiler recorded, divided by their count (it may
     record fewer than ran, or none: then the window is tried again, up to
-    three times).  Kernel time only: an event pair around one
-    launch also counts the gap while the host wrapper enqueues it."""
+    three times).  Device activity only: late in a run a window that also
+    traces the host has recorded the host's calls and none of the kernels,
+    window after window, where a device-only window records them.  Kernel
+    time only: an event pair around one launch also counts the gap while
+    the host wrapper enqueues it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(3):      # a window may record nothing: try it again
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -938,7 +957,7 @@ def phase_full_plane(torch, img, gray, stats, card, t3_rate):
     # cases): B7-joint here over the 4:4:4-sized plane in two ranges
     for flags in (Q_FLAGS[6], JOINT_YUV, Q_FLAGS[2]):
         err = check_range(torch, (coef, pix, image2_444), tabs, flags, True,
-                          wb, (0, B // 2, B), (0, hb - 1), True)
+                          wb, (0, B // 2, B), (0, hb - 1, 0, wb - 1), True)
         stats["solve_range_pix_joint"]["max_abs_err"] = max(
             stats["solve_range_pix_joint"]["max_abs_err"], err)
     log(f"kernels vs plain: full {hb}x{wb} luma plane (B1; B2 and B5 at "
@@ -1154,7 +1173,7 @@ def phase_main(torch, runs, card):
             f"{e2e_ms:.3f} ms = upload {up_ms:.3f} + device + download "
             f"{down_ms:.3f} + rest {rest_ms:.3f}; card busy "
             f"{100 * busy / dev_ms:.1f}%, {n_launch} kernels, {split}, glue "
-            f"{busy - sum(by_kernel.values()):.3f} ms [{card}]")
+            f"{glue_ms(busy, by_kernel):.3f} ms [{card}]")
     log(f"main path launches (all runs): {total}")
     return total, summaries
 
@@ -1353,13 +1372,13 @@ def phase_batch(torch, card, color, gray):
             f"end-to-end {e2e_ms:.3f} ms ({rate(e2e_ms):.1f} MP/s; "
             f"sequential smooth() {seq_ms:.3f}, {rate(seq_ms):.1f} MP/s); "
             f"card busy {100 * busy / dev_ms:.1f}%, {n_launch} kernels, "
-            f"{split}, glue {busy - sum(by_kernel.values()):.3f} ms [{card}]")
+            f"{split}, glue {glue_ms(busy, by_kernel):.3f} ms [{card}]")
         del run, got
         torch.cuda.empty_cache()
     summaries.append(check_window(torch, card, grays,
                                   QsOptions.from_quality(3, 3)))
     log(f"batch launches (all cases): {total}")
-    return total, summaries
+    return total, summaries, (colors, grays)
 
 
 # batches in flight in check_window (the corpus pipeline's window)
@@ -1373,7 +1392,9 @@ def check_window(torch, card, imgs, opts):
     its own batch alone (with a spin of the card queued behind the first
     batch, its assemble() returns while the card still spins); and the
     batches in flight take less time than the batches in turn, medians
-    of 5 on the host clock.  Returns a summary line."""
+    of 7 on the host clock, the two timed in alternation (which goes
+    first alternates too) so that a slower spell of the host falls on
+    both.  Returns a summary line."""
     dev = engine.resolve_device()
     plan = engine.plan_image(imgs[0], opts)
 
@@ -1395,8 +1416,15 @@ def check_window(torch, card, imgs, opts):
     spinning = not torch.cuda.current_stream().query()
     later()
     assert spinning, "window: assemble() waited for the batches after its own"
-    turn_ms = host_ms(lambda: (in_turn(), torch.cuda.synchronize()))
-    ahead_ms = host_ms(lambda: (ahead(), torch.cuda.synchronize()))
+    times = {in_turn: [], ahead: []}
+    for i in range(7):
+        for fn in ((in_turn, ahead) if i % 2 == 0 else (ahead, in_turn)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[fn].append((time.perf_counter() - t0) * 1e3)
+    turn_ms = statistics.median(times[in_turn])
+    ahead_ms = statistics.median(times[ahead])
     line = (f"summary batch window: {WINDOW} batches of {len(imgs)} x "
             f"{imgs[0].width}x{imgs[0].height} gray q3 n3 in flight "
             f"{ahead_ms:.3f} ms, in turn {turn_ms:.3f} ms "
@@ -1561,7 +1589,7 @@ def phase_progress(torch, img, card):
             f"summary progress {name}: smooth() {e2e_ms:.3f} ms, "
             f"{len(calls)} callbacks, card busy {busy:.3f} ms "
             f"({100 * busy / e2e_ms:.1f}%), {n_launch} kernels, {split}, "
-            f"glue {busy - sum(by_kernel.values()):.3f} ms [{card}]")
+            f"glue {glue_ms(busy, by_kernel):.3f} ms [{card}]")
     calls, plain_calls = [], []
     res = jpegqs_tpu_torch.smooth(img, QsOptions.from_quality(
         6, 3, precise=True, progress=recorder(calls, 3)))
@@ -1600,9 +1628,10 @@ def range_key(flags, joint):
 
 
 def shard_rows(r, hb, hb_loc):
-    """(real rows, edges) of shard r of a plane of hb real block rows cut
-    into shards of hb_loc rows, as parallel/sharded.py cuts it (the last
-    shards may hold dead pad rows)."""
+    """(real rows, row edges (top_row, bot_row)) of shard r of a plane of
+    hb real block rows cut into shards of hb_loc rows, as
+    parallel/sharded.py cuts it (the last shards may hold dead pad rows);
+    the same for the columns of a grid's column shards."""
     er, el = sharded._edge_pos(hb, hb_loc)
     real = hb_loc if r < er else (el + 1 if r == er else 0)
     return real, (1 if r == 0 else -1, el + 1 if r == er else -1)
@@ -1633,10 +1662,18 @@ def check_range(torch, ext, tabs, flags, reb, wb, cuts, edges, want_pix):
     """B7 vs its plain version over the ranges between consecutive
     ``cuts`` of one shard, each writing its range of one whole-size
     output; returns the max |err|."""
+    return check_ranges(torch, ext, tabs, flags, reb, wb,
+                        list(zip(cuts, cuts[1:])), edges, want_pix)
+
+
+def check_ranges(torch, ext, tabs, flags, reb, wb, ranges, edges, want_pix):
+    """B7 vs its plain version over the block ranges [b0, b1) of one
+    shard, each writing its range of one whole-size output; returns the
+    max |err|."""
     coef, pix, image2 = ext
     got = [torch.zeros_like(coef) for _ in range(2)]
     want = [torch.zeros_like(coef) for _ in range(2)]
-    for b0, b1 in zip(cuts, cuts[1:]):
+    for b0, b1 in ranges:
         cuda_solver.solve_range_pix(coef, pix, image2, *tabs, flags, reb, wb,
                                     b0, b1, edges, got[0],
                                     got[1] if want_pix else None)
@@ -1646,7 +1683,7 @@ def check_range(torch, ext, tabs, flags, reb, wb, cuts, edges, want_pix):
     torch.cuda.synchronize()
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
     assert err == 0, (f"B7 differs from plain at flags={flags} wb={wb} "
-                      f"cuts={cuts} edges={edges} reb={reb} (max |err| "
+                      f"ranges={ranges} edges={edges} reb={reb} (max |err| "
                       f"{err})")
     return err
 
@@ -1681,6 +1718,7 @@ def phase_b7_vs_plain(torch, stats):
                 np.int32)) if joint else None)
             for r in range(n):
                 real, edges = shard_rows(r, hb, sharded._pad_to(hb, n) // n)
+                edges = (*edges, 0, wb - 1)
                 if not real:
                     continue
                 ext = [shard_ext(x, r, n, wb, rng)
@@ -1726,6 +1764,7 @@ def phase_b7_full_shard(torch, img, stats, card, t3_rate):
     timed = []
     for plane, ext, t, w, h, sets in plans:
         real, edges = shard_rows(r, h, sharded._pad_to(h, n) // n)
+        edges = (*edges, 0, w - 1)
         last = (real + 1) * w
         for flags, joint in sets:
             if not joint:
@@ -1781,27 +1820,35 @@ def phase_b7_full_shard(torch, img, stats, card, t3_rate):
 
 def expected_sharded(img, opts, n, overlap):
     """The launches of an auto-sharded run over up to n shards that no
-    stop cuts short, worked out from the image: per component B1 on each
-    shard, and per iteration on each shard with real rows one B7 launch,
-    or three (interior rows, first row, last row) under JPEGQS_OVERLAP
-    when it has three real rows or more."""
+    stop cuts short, worked out from the image, and its (rows, cols)
+    grid: per component B1 on each shard, and per iteration on each shard
+    with real blocks, on a grid of one column one B7 launch, or three
+    (interior rows, first row, last row) under JPEGQS_OVERLAP when it has
+    three real rows or more, on a grid of several columns one launch per
+    real row."""
     flags, comps = opts.flags, img.components
-    r = engine._shard_grid(img, opts, n)
+    r, c = grid = engine.choose_grid(img, opts, n)
     ycbcr = engine._need_downsample(img, flags)
-    want = {"idct_pix": r * len(comps)}
-    for ci, c in enumerate(comps):
-        hb = c.height_in_blocks
-        if ycbcr:       # the luma is padded to v_samp x the chroma's rows
+    want = {"idct_pix": r * c * len(comps)}
+    for ci, comp in enumerate(comps):
+        hb, wb = comp.height_in_blocks, comp.width_in_blocks
+        if ycbcr:       # the luma is padded to samp x the chroma's blocks
             hb_pad = sharded._pad_to(comps[1].height_in_blocks, r) * (
-                c.v_samp_factor if ci == 0 else 1)
+                comp.v_samp_factor if ci == 0 else 1)
+            wb_pad = sharded._pad_to(comps[1].width_in_blocks, c) * (
+                comp.h_samp_factor if ci == 0 else 1)
         else:
-            hb_pad = sharded._pad_to(hb, r)
+            hb_pad, wb_pad = sharded._pad_to(hb, r), sharded._pad_to(wb, c)
         key = range_key(flags, ycbcr and ci > 0 and bool(flags & JOINT_YUV))
+        cols = sum(shard_rows(j, wb, wb_pad // c)[0] > 0 for j in range(c))
         for k in range(r):
             real = shard_rows(k, hb, hb_pad // r)[0]
-            per = 3 if overlap and real >= 3 else int(real > 0)
+            if c > 1:
+                per = real * cols
+            else:
+                per = 3 if overlap and real >= 3 else int(real > 0)
             want[key] = want.get(key, 0) + per * opts.niter
-    return want, r
+    return want, grid
 
 
 def sharded_device_run(img, opts, devices):
@@ -1809,7 +1856,8 @@ def sharded_device_run(img, opts, devices):
     devices)`` on inputs already on the card: the same builders, called
     with device tensors (outputs stay on the card)."""
     flags, comps = opts.flags, img.components
-    devices = devices[:engine._shard_grid(img, opts, len(devices))]
+    devices = engine.shard_layout(devices, engine.choose_grid(
+        img, opts, len(devices)))
 
     def dev_inputs(c):
         qraw = np.asarray(c.quantval, np.int32)
@@ -1869,7 +1917,7 @@ def phase_sharded(torch, runs, card):
         counts = dict(cuda_solver.LAUNCHES)
         tag = f"q{quality} n{niter}, {n} shards, overlap {overlap}"
         assert res is not None, f"{name} {tag}: sharding declined"
-        want, r = expected_sharded(img, opts, n, overlap == "1")
+        want, grid = expected_sharded(img, opts, n, overlap == "1")
         expect = dict.fromkeys(counts, 0)
         expect.update(want)
         assert counts == expect, f"{name} {tag}: launches {counts} != {expect}"
@@ -1886,20 +1934,21 @@ def phase_sharded(torch, runs, card):
         busy, n_launch, by_kernel = device_breakdown(torch, run, dev_ms, card,
                                                      sharded=True)
         mp = img.width * img.height / 1e6
-        log(f"sharded {name} {tag}: {img.width}x{img.height}, {r} shards "
-            f"used, launches {counts}; bit-identical to the single-device "
-            f"run")
+        log(f"sharded {name} {tag}: {img.width}x{img.height}, grid "
+            f"{grid[0]}x{grid[1]} used, launches {counts}; bit-identical to "
+            f"the single-device run")
         log(f"  device {dev_ms:.3f} ms ({mp / dev_ms * 1e3:.1f} MP/s), "
             f"_try_smooth_sharded() {e2e_ms:.3f} ms; single device "
             f"{dev1_ms:.3f} ms, smooth() {e2e1_ms:.3f} ms [{card}]")
         summaries.append(
-            f"summary sharded {name} {tag}: device {dev_ms:.3f} ms, "
+            f"summary sharded {name} {tag}, grid {grid[0]}x{grid[1]}: "
+            f"device {dev_ms:.3f} ms, "
             f"smooth() {e2e_ms:.3f} ms; card busy {100 * busy / dev_ms:.1f}%, "
             f"{n_launch} kernels, B7 {by_kernel['B7']:.3f} ms in "
             f"{sum(v for k, v in counts.items() if 'range' in k)} launches, "
             f"exchange {by_kernel['exchange']:.3f} ms, B1 "
             f"{by_kernel['B1']:.3f} ms, glue "
-            f"{busy - sum(by_kernel.values()):.3f} ms; single device "
+            f"{glue_ms(busy, by_kernel):.3f} ms; single device "
             f"{dev1_ms:.3f} / {e2e1_ms:.3f} ms [{card}]")
     os.environ.pop("JPEGQS_OVERLAP", None)
     log(f"sharded path launches (all runs): {total}")
@@ -1951,10 +2000,11 @@ def phase_multicard(torch, runs, card):
         res = jpegqs_tpu_torch.smooth(img, opts)
         sync()
         counts = dict(cuda_solver.LAUNCHES)
-        want, r = expected_sharded(img, opts, n, False)
+        want, grid = expected_sharded(img, opts, n, False)
         expect = dict.fromkeys(counts, 0)
         expect.update(want)
-        tag = f"q{quality} n{niter} over {r} cards"
+        tag = (f"q{quality} n{niter} over {grid[0] * grid[1]} cards (grid "
+               f"{grid[0]}x{grid[1]})")
         assert counts == expect, f"{name} {tag}: launches {counts} != {expect}"
         for k, v in counts.items():
             total[k] += v
@@ -2011,11 +2061,387 @@ def phase_golden_sharded(torch):
     return dict(cuda_solver.LAUNCHES)
 
 
+# B7's 2-D shard grids (hb, wb, grid rows, grid columns): the right and
+# bottom edges mid-shard (dead pad blocks beyond), one-row shards, rows under
+# and over B4's 16-block tile
+B7_GRIDS = ((7, 41, 2, 3), (3, 70, 1, 4), (11, 9, 3, 2), (5, 37, 2, 2))
+# the line-scan / panorama strips the 2-D grid exists for, (height, width):
+# a 4:2:0 strip of 4 x 8190 luma and 2 x 4095 chroma blocks (49,140 in
+# all), and a gray strip of 2 x 8190 (16,380: under the default threshold)
+STRIP_HW = (32, 65520)
+GRAY_STRIP_HW = (16, 65520)
+GRAY_STRIP_MIN_BLOCKS = 16000
+
+
+def grid_shard(r, c, hb, wb, nr, nc):
+    """(real rows, real columns, edges, hb_loc, wb_loc) of shard (r, c) of
+    an hb x wb plane on an nr x nc grid, as parallel/sharded.py cuts it:
+    the edges (top_row, bot_row, left_col, right_col) of its
+    ghost-extended grid."""
+    hb_loc, wb_loc = sharded._pad_to(hb, nr) // nr, sharded._pad_to(wb, nc) // nc
+    rows, (top, bot) = shard_rows(r, hb, hb_loc)
+    cols, (left, right) = shard_rows(c, wb, wb_loc)
+    return rows, cols, (top, bot, left, right), hb_loc, wb_loc
+
+
+def shard_ext2d(x, r, c, nr, nc, wb, rng=None):
+    """Shard (r, c) of an nr x nc grid over plane x int32[R, hb*wb] as the
+    2-D loop holds it: its blocks inside a ring of ghost blocks holding
+    the neighbour shards' (corners the diagonal shards'); outside the
+    image and on dead pad blocks random when ``rng`` is given (no edge may
+    let a pass read them), else zero."""
+    import torch
+    if x is None:
+        return None
+    R, hb = x.shape[0], x.shape[1] // wb
+    hb_loc, wb_loc = sharded._pad_to(hb, nr) // nr, sharded._pad_to(wb, nc) // nc
+    shape = (R, hb_loc + 2, wb_loc + 2)
+    out = (to_dev(rng.integers(0, 256, shape).astype(np.int32))
+           if rng is not None else torch.zeros(shape, dtype=torch.int32,
+                                               device=x.device))
+    y0, x0 = r * hb_loc - 1, c * wb_loc - 1
+    ya, yb = max(y0, 0), min(y0 + hb_loc + 2, hb)
+    xa, xb = max(x0, 0), min(x0 + wb_loc + 2, wb)
+    if ya < yb and xa < xb:
+        out[:, ya - y0:yb - y0, xa - x0:xb - x0] = x.reshape(R, hb, wb)[
+            :, ya:yb, xa:xb]
+    return out.reshape(R, -1)
+
+
+def row_ranges(rows, cols, wb_eff):
+    """The 2-D loop's B7 ranges of a shard: one a real row, its real
+    columns (from column 1 of the ghost-extended grid)."""
+    return [(i * wb_eff + 1, i * wb_eff + 1 + cols)
+            for i in range(1, rows + 1)] if cols else []
+
+
+def phase_b7_grid(torch, stats, card, t3_rate, strip):
+    """B7 with column edges vs its plain version on every shard of small
+    random planes on 2-D grids (B7_GRIDS: the right and bottom edges
+    mid-shard, ghosts and dead blocks random), one range per real row as
+    the 2-D loop launches it, with rebalance and pixels on and off; then
+    on shard (1, 1) of the 4:2:0 strip's planes on its 2 x 2 grid (the
+    chroma's right edge mid-shard) at each variant, with the time of the shard's
+    pass (its per-row launches) beside its bound."""
+    rng = np.random.default_rng(17)
+    n_cases = 0
+    for flags, joint in RANGE_FLAG_SETS:
+        for hb, wb, nr, nc in B7_GRIDS:
+            coef, pix, tabs = _random_case(rng, hb * wb, True)
+            image2 = (to_dev(rng.integers(0, 256, (100, hb * wb)).astype(
+                np.int32)) if joint else None)
+            for r in range(nr):
+                for c in range(nc):
+                    rows, cols, edges, _, wb_loc = grid_shard(r, c, hb, wb,
+                                                              nr, nc)
+                    if not rows or not cols:
+                        continue
+                    ext = [shard_ext2d(x, r, c, nr, nc, wb, rng)
+                           for x in (coef, pix, image2)]
+                    ranges = row_ranges(rows, cols, wb_loc + 2)
+                    key = range_key(flags, joint)
+                    for reb, want_pix in ((True, True), (False, False)):
+                        err = check_ranges(torch, ext, tabs, flags, reb,
+                                           wb_loc + 2, ranges, edges,
+                                           want_pix)
+                        stats[key]["max_abs_err"] = max(
+                            stats[key]["max_abs_err"], err)
+                        n_cases += 1
+    log(f"B7 with column edges vs plain: {n_cases} small 2-D shard cases "
+        f"bit-identical (flags "
+        f"{', '.join(FLAG_NAMES[f] for f, _ in RANGE_FLAG_SETS)}; (hb, wb, "
+        f"rows, cols) in {B7_GRIDS}; every shard, one range a real row; "
+        f"ghosts and dead blocks random)")
+    coef, pix, tabs, hb, wb = _plane_inputs(strip, 0)
+    ccoef, cpix, ctabs, hbc, wbc = _plane_inputs(strip, 1)
+    image2 = planar.blocks_halo10(planar.downsample_blocks(
+        pix.reshape(8, 8, hb * wb), hb, wb, hbc, wbc, 2, 2), hbc, wbc).reshape(
+        100, hbc * wbc)
+    r = c = 1
+    blk = 64 * 4
+    for plane, xs, t, w, h, sets in (
+            ("luma", (coef, pix, None), tabs, wb, hb,
+             ((Q_FLAGS[3], False), (Q_FLAGS[6], False), (Q_FLAGS[0], False))),
+            ("chroma", (ccoef, cpix, image2), ctabs, wbc, hbc,
+             ((Q_FLAGS[6], True), (Q_FLAGS[2], True)))):
+        rows, cols, edges, _, wb_loc = grid_shard(r, c, h, w, 2, 2)
+        ext = [shard_ext2d(x, r, c, 2, 2, w) for x in xs]
+        wb_eff = wb_loc + 2
+        ranges = row_ranges(rows, cols, wb_eff)
+        for flags, joint in sets:
+            e = ext if joint else ext[:2] + [None]
+            key = range_key(flags, joint)
+            err = check_ranges(torch, e, t, flags, True, wb_eff, ranges,
+                               edges, True)
+            stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+            nb = rows * cols
+            if flags & LOW_QUALITY and not joint:
+                nbytes, ops = nb * blk * 4, nb * LQ_PREAMBLE_OPS
+            elif joint:
+                nbytes = nb * (blk * 4 + 100 * 4)
+                ops = nb * JOINT_PREAMBLE_OPS
+                if not flags & LOW_QUALITY:
+                    nbytes += 64 * cuda_solver.nt_for(flags) * 4
+                    ops += nb * sweep_terms(flags) * FP32_OPS_PER_TERM
+            else:
+                nbytes = nb * blk * 4 + 64 * cuda_solver.nt_for(flags) * 4
+                ops = nb * sweep_terms(flags) * FP32_OPS_PER_TERM
+            outs = [torch.empty_like(e[0]) for _ in range(2)]
+
+            def run(e=e, t=t, flags=flags, ranges=ranges, edges=edges,
+                    outs=outs, wb_eff=wb_eff):
+                for b0, b1 in ranges:
+                    cuda_solver.solve_range_pix(*e, *t, flags, True, wb_eff,
+                                                b0, b1, edges, *outs)
+
+            def plain(e=e, t=t, flags=flags, ranges=ranges, edges=edges,
+                      outs=outs, wb_eff=wb_eff):
+                for b0, b1 in ranges:
+                    plain_solve_range_pix(*e, *t, flags, True, wb_eff, b0,
+                                          b1, edges, *outs)
+            row = {"ms": cuda_ms(run), "kernel_ms": kernel_ms(run),
+                   "plain_ms": cuda_ms(plain, 1), "launches": len(ranges),
+                   **bound_row(nbytes, ops, t3_rate)}
+            what = (f"2-D shard: {nb} blocks of shard (1, 1) of the "
+                    f"{h}x{w} {plane} strip plane on a 2 x 2 grid, "
+                    f"{len(ranges)} launches of one row, flags "
+                    f"{FLAG_NAMES.get(flags, flags)}")
+            log(f"B7 {key} {what}: {row['ms']:.4f} ms a pass (profiler: "
+                f"{row['kernel_ms']:.4f} ms a launch, kernel only), plain "
+                f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}; {row['bound_ms_t3']:.4f} ms at T3's "
+                f"fp32 rate) [{card}]")
+            stats[key].setdefault("variants", []).append({"what": what,
+                                                          **row})
+
+
+def strip_images():
+    """The 4:2:0 and gray strips (STRIP_HW, GRAY_STRIP_HW), IJG q75."""
+    t0 = time.perf_counter()
+    strip = synth.make_image(*STRIP_HW, color=True, seed=0)
+    gray_strip = synth.make_image(*GRAY_STRIP_HW, color=False, seed=0)
+    log(f"inputs: synthetic {STRIP_HW[1]}x{STRIP_HW[0]} 4:2:0 and "
+        f"{GRAY_STRIP_HW[1]}x{GRAY_STRIP_HW[0]} gray strips, IJG q75, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return strip, gray_strip
+
+
+def phase_grid(torch, card, strip, gray_strip):
+    """The 2-D grid through ``engine._try_smooth_sharded`` on 4 shards of
+    this card (phase_sharded's checks and times): the 4:2:0 strip at q6
+    n3 and q2 n3 and, with JPEGQS_SHARD_MIN_BLOCKS lowered under its
+    16,380 blocks, the gray strip at q3 n3.  Each takes the 2 x 2 grid."""
+    import os
+    for img in (strip, gray_strip):
+        grid = engine.choose_grid(img, QsOptions.from_quality(3, 3), 4)
+        assert grid in (None, (2, 2)), grid
+    assert engine.choose_grid(strip, QsOptions.from_quality(6, 3),
+                              4) == (2, 2)
+    launches, summaries = phase_sharded(torch, (
+        ("strip_420", strip, 6, 3, 4, "0"),
+        ("strip_420", strip, 2, 3, 4, "0")), card)
+    os.environ["JPEGQS_SHARD_MIN_BLOCKS"] = str(GRAY_STRIP_MIN_BLOCKS)
+    log(f"JPEGQS_SHARD_MIN_BLOCKS={GRAY_STRIP_MIN_BLOCKS} for the gray strip "
+        f"({GRAY_STRIP_HW[1]}x{GRAY_STRIP_HW[0]}: 16,380 blocks, under the "
+        f"default 16,384)")
+    try:
+        more, lines = phase_sharded(torch, (
+            ("strip_gray", gray_strip, 3, 3, 4, "0"),), card)
+    finally:
+        del os.environ["JPEGQS_SHARD_MIN_BLOCKS"]
+    for k, v in more.items():
+        launches[k] += v
+    return launches, summaries + lines
+
+
+def phase_batch_dp(torch, card, colors, grays):
+    """Batch data parallelism on shards of this card: the batch form of
+    ``make_sharded_smooth`` (the JAX package's batch_axis) over data 2 x
+    row 2 on the 16 gray frames at q3 n3, and ``smooth_batch_sharded``
+    over data 2 x row 1 on the 8 colour photos at q6 n3: launch counts,
+    bit-identity with ``smooth_image_batch`` on one device, device and
+    end-to-end times beside it; then ``dryrun_multichip(4)``.  Returns the
+    summed launch counts and the summary lines."""
+    dev = engine.resolve_device()
+    total = dict.fromkeys(cuda_solver.LAUNCHES, 0)
+    summaries = []
+    opts = QsOptions.from_quality(3, 3)
+    comp = grays[0].components[0]
+    hb, wb = comp.height_in_blocks, comp.width_in_blocks
+    qraw = np.asarray(comp.quantval, np.int32)
+    coefs16 = np.stack([np.asarray(g.components[0].coefs, np.int16).reshape(
+        hb, wb, 64) for g in grays])
+    n = len(grays)
+    fn = sharded.make_sharded_smooth([[DEVICE] * 2] * 2, hb=hb, wb=wb,
+                                     flags=opts.flags, niter=opts.niter,
+                                     batch=True)
+    want = batch.smooth_image_batch(grays, opts)
+    (out, bad), counts = counted(torch, lambda: fn(
+        coefs16, qraw, *make_quant_tables(qraw)))
+    per = {"idct_pix": 2, "solve_range_pix": 2 * opts.niter}
+    assert counts == {k: v * n for k, v in per.items()}, counts
+    for k, v in counts.items():
+        total[k] += v
+    assert not bool(bad.any())
+    assert np.array_equal(out.cpu().numpy(),
+                          np.stack([w.coefs[0] for w in want])), \
+        "data x row batch != smooth_image_batch"
+    c16 = to_dev(coefs16)
+    tabs = [to_dev(t) for t in (qraw, *make_quant_tables(qraw))]
+    plan = engine.plan_image(grays[0], opts)
+    inputs = engine.upload(grays, plan.comps, dev)
+    rows = [("gray_2mp", f"x{n} q3 n3, data 2 x row 2 (make_sharded_smooth "
+             f"batch form)", cuda_ms(lambda: fn(c16, *tabs), 3),
+             cuda_ms(lambda: engine.run_image(plan, inputs, n), 3),
+             host_ms(lambda: fn(coefs16, qraw, *make_quant_tables(
+                 qraw))[0].cpu(), 3),
+             host_ms(lambda: batch.smooth_image_batch(grays, opts), 3),
+             n * grays[0].width * grays[0].height / 1e6)]
+    del inputs, c16
+    opts = QsOptions.from_quality(6, 3)
+    groups = [[DEVICE], [DEVICE]]
+    got, counts = counted(torch, lambda: sharded.smooth_batch_sharded(
+        colors, opts, groups))
+    plan = engine.plan_image(colors[0], opts)
+    want_counts = {k: 2 * v for k, v in expected_launches(plan).items()}
+    assert counts == want_counts, f"{counts} != {want_counts}"
+    for k, v in counts.items():
+        total[k] += v
+    want = batch.smooth_image_batch(colors, opts)
+    assert all(_same(a, b) for a, b in zip(got, want)), \
+        "data x row colour batch != smooth_image_batch"
+    half = len(colors) // 2
+    shares = [engine.upload(colors[:half], plan.comps, dev),
+              engine.upload(colors[half:], plan.comps, dev)]
+    whole = engine.upload(colors, plan.comps, dev)
+    rows.append(("color_12mp", f"x{len(colors)} q6 n3, data 2 x row 1 "
+                 f"(smooth_batch_sharded)",
+                 cuda_ms(lambda: [engine.run_image(plan, x, half)
+                                  for x in shares], 3),
+                 cuda_ms(lambda: engine.run_image(plan, whole, len(colors)),
+                         3),
+                 host_ms(lambda: sharded.smooth_batch_sharded(colors, opts,
+                                                              groups), 3),
+                 host_ms(lambda: batch.smooth_image_batch(colors, opts), 3),
+                 len(colors) * colors[0].width * colors[0].height / 1e6))
+    del shares, whole
+    for name, what, dp_dev, one_dev, dp_e2e, one_e2e, mp in rows:
+        summaries.append(
+            f"summary batch-dp {name} {what}: device {dp_dev:.3f} ms "
+            f"({mp / dp_dev * 1e3:.1f} MP/s), end-to-end {dp_e2e:.3f} ms; "
+            f"one device (smooth_image_batch): device {one_dev:.3f} ms, "
+            f"end-to-end {one_e2e:.3f} ms; bit-identical [{card}]")
+        log(summaries[-1])
+    line, counts = counted(torch, lambda: sharded.dryrun_multichip(4))
+    log(f"{line}; launches {counts}")
+    torch.cuda.empty_cache()
+    return total, summaries
+
+
+def _launch_ranks(args, timeout, backend="gloo"):
+    """The launcher's --local 2 fan-out through tools/multihost_worker.py
+    (two ranks, under gloo sharing this card, two shards each) with
+    ``args``; returns its stderr and rank 0's launches.  Raises when a
+    rank fails or the run outlasts its time."""
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run(
+        [sys.executable, os.path.join(here, "tools", "multihost_worker.py"),
+         "--local", "2", "--shards-per-rank", "2", "--timeout",
+         str(timeout), *args], cwd=here, capture_output=True, text=True,
+        timeout=timeout + 60)
+    assert r.returncode == 0, f"ranks failed: {r.stderr[-3000:]}"
+    assert r.stderr.count(f"joined, backend {backend}") == 2, \
+        r.stderr[-3000:]
+    launches = {}
+    for line in r.stderr.splitlines():
+        if line.startswith("multihost_worker: rank 0 launches "):
+            launches = json.loads(line.split("launches ", 1)[1])
+    return r.stderr, launches
+
+
+def phase_multiprocess(torch, card, aligned, strip, grays):
+    """The multi-process engine: the launcher's --local 2, two gloo ranks
+    on this card with two shards each (NCCL refuses two ranks on one
+    card), each rank building its inputs from their seeds:
+    smooth_image_distributed of the 4032x3024 photo at q6 n3 (a 4 x 1
+    grid across the ranks) and of the 4:2:0 strip at q6 n3 (2 x 2), then
+    smooth_batch_distributed of two gray frames a rank at q3 n3, each 3
+    times (the first also loads the kernels).  Rank 0's planes (each
+    rank's, for the batch) against the single-process run, rank 0's kernel
+    launches, each run's time and the host time of the last run's
+    point-to-point exchanges.  The NCCL path needs a card a rank: on a
+    one-card machine it says so."""
+    import os
+    import tempfile
+    dev = engine.resolve_device()
+    summaries = []
+    with tempfile.TemporaryDirectory() as d:
+        save = os.path.join(d, "planes.npz")
+        for name, hw, img in (("color_12mp_aligned", ALIGNED_HW, aligned),
+                              ("strip_420", STRIP_HW, strip)):
+            opts = QsOptions.from_quality(6, 3)
+            t0 = time.perf_counter()
+            err, launches = _launch_ranks(
+                ["--synth", f"{hw[0]},{hw[1]},1,0", "-q", "6", "-n", "3",
+                 "--reps", "3", "--save", save], 300)
+            wall = time.perf_counter() - t0
+            assert launches.get("idct_pix") and any(
+                v for k, v in launches.items() if k.startswith(
+                    "solve_range")), f"rank 0 launched {launches}"
+            planes = np.load(save)
+            want = engine._smooth_fused(img, opts, dev)
+            assert int(planes["stop"]) == want.stop
+            assert all(np.array_equal(planes[f"coef{i}"], c)
+                       for i, c in enumerate(want.coefs)), \
+                f"{name}: two ranks != one process"
+            assert np.array_equal(planes["up1"], want.upsampled[0]) and \
+                np.array_equal(planes["up2"], want.upsampled[1])
+            report = [ln for ln in err.splitlines()
+                      if ln.startswith("multihost_worker: 2 ranks")]
+            summaries.append(
+                f"summary multi-process {name} q6 n3: {report[-1][18:]}; "
+                f"rank 0 launches {launches}; whole fan-out {wall:.1f} s "
+                f"(two processes' start, inputs and build load "
+                f"included); bit-identical to one process [{card}]")
+            log(summaries[-1])
+        base = os.path.join(d, "batch")
+        err, launches = _launch_ranks(
+            ["--synth", f"{GRAY_HW[0]},{GRAY_HW[1]},0,0", "--batch", "2",
+             "-q", "3", "-n", "3", "--reps", "3", "--save", base], 300)
+        opts = QsOptions.from_quality(3, 3)
+        for rank in range(2):
+            got = np.load(f"{base}.rank{rank}.npz")["coefs"]
+            for i in range(2):
+                want = engine._smooth_fused(grays[rank * 2 + i], opts, dev)
+                assert np.array_equal(got[i], want.coefs[0]), \
+                    f"batch rank {rank} frame {i} != one process"
+        times = [ln for ln in err.splitlines() if "frames in" in ln]
+        summaries.append(
+            f"summary multi-process batch gray_2mp 2 x 2 frames q3 n3: "
+            f"{'; '.join(t[18:] for t in times)}; rank 0 launches "
+            f"{launches}; bit-identical to one process [{card}]")
+        log(summaries[-1])
+    if torch.cuda.device_count() < 2:
+        log("multi-process over NCCL: not run: one card here, and NCCL "
+            "refuses two ranks on one card")
+    else:
+        err, launches = _launch_ranks(
+            ["--backend", "nccl", "--synth",
+             f"{STRIP_HW[0]},{STRIP_HW[1]},1,0", "-q", "6", "-n", "3"], 300,
+            backend="nccl")
+        log(f"multi-process over NCCL, strip q6 n3: "
+            f"{[ln for ln in err.splitlines() if 'backend nccl' in ln]}")
+    return summaries
+
+
 def device_breakdown(torch, run, dev_ms, card, window="device run",
                      sharded=False):
     """Kernel time by name over one run (torch.profiler), and the share
     of the ``dev_ms`` window the card was busy.  Returns the busy ms, the
-    kernel launches and the ms of each of B1-B7 (``kernel_label``)."""
+    kernel launches and the ms of each of B1-B7 (``kernel_label``), of the
+    exchange's range and of the copies between host and card (pageable
+    ones last as long as the host's page faults)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -2025,7 +2451,9 @@ def device_breakdown(torch, run, dev_ms, card, window="device run",
     rows = []
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0)
-        if e.device_type == DeviceType.CUDA and t > 0:
+        # the exchange's range spans copies that have rows of their own
+        if e.device_type == DeviceType.CUDA and t > 0 and \
+                e.key != "jpegqs_exchange":
             rows.append((t / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
@@ -2044,7 +2472,17 @@ def device_breakdown(torch, run, dev_ms, card, window="device run",
         if label:
             by_kernel[label] += t
     by_kernel["exchange"] = exchange
+    by_kernel["host copies"] = sum(t for t, _, key in rows
+                                   if "HtoD" in key or "DtoH" in key)
     return busy, sum(r[1] for r in rows), by_kernel
+
+
+def glue_ms(busy, by_kernel):
+    """The busy time outside B1-B7 and the host copies: the glue's kernels
+    and the copies between device buffers, the exchange's among them (its
+    range also spans the waits on its side streams, so it is not
+    subtracted)."""
+    return busy - sum(v for k, v in by_kernel.items() if k != "exchange")
 
 
 def kernel_label(key, sharded):
@@ -2194,7 +2632,8 @@ def main() -> int:
     ), card)
     stamp("main path")
     main_launches = dict(launches)
-    batch_launches, batch_summaries = phase_batch(torch, card, color, gray)
+    batch_launches, batch_summaries, (colors, grays) = phase_batch(
+        torch, card, color, gray)
     stamp("batch engine")
     decode_launches = phase_decode(torch, card, color, gray)
     stamp("decode path")
@@ -2227,8 +2666,19 @@ def main() -> int:
         ("gray_2mp", gray, 0, 3)), card)
     sharded_summaries += multicard_summaries
     stamp("sharded path")
+    strip, gray_strip = strip_images()
+    phase_b7_grid(torch, stats, card, t3_rate, strip)
+    grid_launches, grid_summaries = phase_grid(torch, card, strip, gray_strip)
+    stamp("2-D grid")
+    dp_launches, dp_summaries = phase_batch_dp(torch, card, colors, grays)
+    del colors
+    stamp("batch data parallelism")
+    mp_summaries = phase_multiprocess(torch, card, aligned, strip, grays)
+    stamp("multi-process")
+    sharded_summaries += grid_summaries + dp_summaries + mp_summaries
     for counts in (batch_launches, decode_launches, progress_launches,
-                   sharded_launches, golden_launches, multicard_launches):
+                   sharded_launches, golden_launches, multicard_launches,
+                   grid_launches, dp_launches):
         for k, v in counts.items():
             launches[k] += v
     unused = [k for k in launches if k not in OFF_PATH and not launches[k]]

@@ -223,7 +223,13 @@ def smooth_image_batch(imgs, opts: QsOptions = None, device=None):
         opts = QsOptions.from_quality(3, 3)
     if not imgs:
         return []
+    return dispatch_image_batch(imgs, opts, dev)()
 
+
+def dispatch_image_batch(imgs, opts: QsOptions, dev):
+    """smooth_image_batch's work on device ``dev``, queued: returns
+    ``assemble() -> [SmoothResult]``, which waits for this batch's copies
+    alone.  The per-image fallbacks run at once."""
     first = imgs[0]
     uniform = (all(_img_sig(im) == _img_sig(first) for im in imgs[1:])
                and first.components[0].h_samp_factor <= 2
@@ -233,5 +239,6 @@ def smooth_image_batch(imgs, opts: QsOptions = None, device=None):
     if uniform and len(imgs) > 1:
         assemble = _batch_dispatch(imgs, opts, dev)
     if assemble is None:
-        return [engine.smooth(im, opts, dev) for im in imgs]
-    return assemble()
+        results = [engine.smooth(im, opts, dev) for im in imgs]
+        return lambda: results
+    return assemble

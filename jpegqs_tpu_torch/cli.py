@@ -270,20 +270,12 @@ def _main_batch(infiles, outdir, opts, qs_opts, backend) -> int:
 
 
 def _traced_smooth(engine, img, qs_opts, backend, trace_dir):
-    """engine.smooth under torch.profiler; the Chrome trace goes to
-    trace_dir/smooth_trace.json."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """engine.smooth under torch.profiler (utils.profiling.device_trace);
+    the Chrome trace goes to trace_dir/smooth_trace.json."""
+    from .utils.profiling import device_trace
 
-    acts = [ProfilerActivity.CPU]
-    if backend == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    with device_trace(trace_dir, backend, "smooth_trace.json"):
         res = engine.smooth(img, qs_opts, backend)
-        if backend == "cuda":
-            torch.cuda.synchronize()
-    os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, "smooth_trace.json"))
     return res
 
 

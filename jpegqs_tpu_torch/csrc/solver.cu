@@ -402,12 +402,15 @@ __device__ __forceinline__ void halo_borders(const H& h, float (&v)[96]) {
 // pixels); B2-B7 differ in where the neighbourhood comes from:
 //  * the previous pass's pixels [64, S] (B2, B3, B4 and B7): a block reads
 //    its neighbours at b -+ 1 and b -+ wb and replicates its own lines at
-//    the edges the descriptor flags.  Its row is (b % period) / wb: its top
-//    edge replicates when that row is top_row, its bottom edge when it is
-//    bot_row; its left and right edges are the grid's columns.  B2-B4 pass
-//    period = hb * wb, top_row = 0 and bot_row = hb - 1 (the edges of the
-//    block's own image: images concatenated on the block axis never mix);
-//    B7 passes period = S (the row is b / wb) and the shard's edges.  One
+//    the edges the descriptor flags.  Its row is (b % period) / wb and its
+//    column (b % period) % wb: its top edge replicates when that row is
+//    top_row, its bottom edge when it is bot_row, its left edge when that
+//    column is left_col, its right edge when it is right_col (-1: none).
+//    B2-B4 pass period = hb * wb and the edges of the block's own image,
+//    rows 0 and hb - 1, columns 0 and wb - 1 (images concatenated on the
+//    block axis never mix); B7 passes period = S (the row is b / wb) and
+//    the shard's edges, which on a 2-D grid with ghost columns are inner
+//    columns of its grid, or none.  One
 //    kernel body per preamble so serves both, the edges a runtime
 //    descriptor (the integer work B2-B4 did already);
 //  * a neighbourhood the caller materialised (B5, B6): border lines
@@ -436,7 +439,8 @@ struct PassArgs {
   const int* qshr;
   const float* tab;     // [64, pitch] (NT > 0 only)
   int pitch, b0, b1, ld_coef, ld_nbhd, ld_image2, ld_out;
-  int wb, period, top_row, bot_row;  // the edges (pixel sources)
+  int wb, period;                    // the grid (pixel sources)
+  int top_row, bot_row, left_col, right_col;  // the edges, -1: none
   int do_rebalance;
 };
 
@@ -448,8 +452,8 @@ __device__ __forceinline__ void pix_edges(const PassArgs& a, int b, bool& t,
   const int by = loc / a.wb, bx = loc - by * a.wb;
   t = by == a.top_row;
   d = by == a.bot_row;
-  l = bx == 0;
-  r = bx == a.wb - 1;
+  l = bx == a.left_col;
+  r = bx == a.right_col;
 }
 
 // ---------------------------------------------------------------------------
@@ -1455,19 +1459,30 @@ solve_borders_lanes_kernel(const PassArgs a) {
 // B7: one resident pass of B2, B3 or B4 over blocks [b0, b1) only, with the
 // edges given by the caller: solve_borders_kernel<NT, false>,
 // solve_joint_kernel<NT, false> and solve_lq_kernel<false> above, with
-// period = S and the shard's top_row / bot_row.
+// period = S and the shard's top_row / bot_row / left_col / right_col.
 // Replaces jpegqs_tpu/ops/pallas_solver.py _solve_tiled(tile_range=(t0, t1))
 // as the sharded resident loop calls it (parallel/sharded.py
 // _sharded_resident_iters: solve_rebalance_pix / solve_fused_pix over a
 // tile range of the ghost-extended shard, with the rank-selected edge masks
-// of _ext_mask_parts).
+// of _ext_mask_parts and, on a 2-D row x column grid, _ext_mask_parts2d).
 // A shard's grid is its own block rows with one ghost row above and one
 // below, which hold the neighbour shards' boundary pixel lines; the edges are
 // not where the position says: the top edge is local row 1 on the first
 // shard only (top_row, else -1), the bottom edge the row of the image's last
 // real block row on the shard that holds it (bot_row, else -1; under
 // pad-to-divisible sharding it may lie mid-shard, with dead rows below).
-// The left and right edges are the grid's columns.  The block range lets a
+// On a row-only grid the left and right edges are the grid's columns (0 and
+// wb - 1).  On a 2-D grid the shard also has one ghost column left and one
+// right, which hold the horizontal neighbours' boundary pixel columns, and
+// the column edges are descriptor values as the row edges are: the left edge
+// is local column 1 on the first column shard only, the right edge the
+// column of the image's last real block column on the shard that holds it.
+// The caller then launches one range per local row, over its real columns
+// only, so no block of a range sits in a ghost column and the kernel bodies
+// stay as they are: a block whose side edge is not flagged reads its
+// neighbour at b -+ 1, a ghost column, and the vertical ring first makes the
+// diagonal corners the diagonal shard's pixels (the exchange copies the
+// columns of the row-extended grid).  The block range lets a
 // caller compute the interior rows, which read no ghost line, while the
 // ghost lines are still being exchanged.  Neighbours are read from the
 // whole input planes [., S]; the blocks of the range are written into the
@@ -1687,11 +1702,12 @@ PassArgs pix_pass(const int* coef_in, const int* pix_in, const int* image2,
                   int* coef_out, int* pix_out, const int* div, const int* x1,
                   const int* qshr, const float* tab, int pitch, int S,
                   int b0, int b1, int wb, int period, int top_row,
-                  int bot_row, int do_rebalance) {
-  return PassArgs{coef_in, pix_in, image2, coef_out, pix_out, div,
-                  x1,      qshr,   tab,    pitch,    b0,      b1,
-                  S,       S,      S,      S,        wb,      period,
-                  top_row, bot_row, do_rebalance};
+                  int bot_row, int left_col, int right_col,
+                  int do_rebalance) {
+  return PassArgs{coef_in,  pix_in,    image2,   coef_out, pix_out, div,
+                  x1,       qshr,      tab,      pitch,    b0,      b1,
+                  S,        S,         S,        S,        wb,      period,
+                  top_row,  bot_row,   left_col, right_col, do_rebalance};
 }
 
 // The descriptor of a pass on given neighbourhoods: n blocks, the inputs'
@@ -1704,7 +1720,7 @@ PassArgs given_pass(const int* coef_in, const int* nbhd, const int* image2,
   return PassArgs{coef_in, nbhd,      image2,  coef_out, pix_out, div,
                   x1,      qshr,      tab,     pitch,    0,       n,
                   ld_coef, ld_nbhd,   ld_image2, n,      1,       1,
-                  -1,      -1,        do_rebalance};
+                  -1,      -1,        -1,      -1,      do_rebalance};
 }
 
 }  // namespace
@@ -1730,7 +1746,7 @@ int jq_solve_rebalance_pix(const int* coef_in, const int* pix_in,
   if (nblocks > 0) {
     const PassArgs a = pix_pass(coef_in, pix_in, nullptr, coef_out, pix_out,
                                 div, x1, qshr, tab, pitch, nblocks, 0,
-                                nblocks, wb, hb * wb, 0, hb - 1,
+                                nblocks, wb, hb * wb, 0, hb - 1, 0, wb - 1,
                                 do_rebalance);
     return (int)launch_pass<false>(a, kBorders, nt, false, false,
                                    (cudaStream_t)stream);
@@ -1753,7 +1769,7 @@ int jq_solve_fused_pix(const int* coef_in, const int* pix_in,
   if (nblocks > 0) {
     const PassArgs a = pix_pass(coef_in, pix_in, image2, coef_out, pix_out,
                                 div, x1, qshr, tab, pitch, nblocks, 0,
-                                nblocks, wb, hb * wb, 0, hb - 1,
+                                nblocks, wb, hb * wb, 0, hb - 1, 0, wb - 1,
                                 do_rebalance);
     return (int)launch_pass<false>(a, image2 ? kJoint : kLowQuality, nt,
                                    false, false, (cudaStream_t)stream);
@@ -1805,14 +1821,15 @@ int jq_solve_fused(const int* coef_in, const int* halo, const int* image2,
 // B7: pre is kBorders (nt 144 or 242), kJoint (image2 given; nt 0, 144 or
 // 242) or kLowQuality (nt 0); tab f32[64, pitch] when nt > 0.  Blocks
 // [b0, b1) of the nblocks-block planes, wb blocks a row; top_row / bot_row
-// the rows whose top / bottom edge replicates (-1: none).  pix_out may be
-// NULL.
+// the rows whose top / bottom edge replicates, left_col / right_col the
+// columns whose left / right edge does (-1: none).  pix_out may be NULL.
 int jq_solve_range_pix(const int* coef_in, const int* pix_in,
                        const int* image2, int* coef_out, int* pix_out,
                        const int* div, const int* x1, const int* qshr,
                        const float* tab, int pre, int nt, int pitch,
                        int nblocks, int wb, int b0, int b1, int top_row,
-                       int bot_row, int do_rebalance, void* stream) {
+                       int bot_row, int left_col, int right_col,
+                       int do_rebalance, void* stream) {
   const bool swept = nt == 144 || nt == 242;
   const bool ok = pre == kBorders  ? swept
                   : pre == kJoint  ? image2 != nullptr && (nt == 0 || swept)
@@ -1822,7 +1839,8 @@ int jq_solve_range_pix(const int* coef_in, const int* pix_in,
   if (b1 > b0) {
     const PassArgs a = pix_pass(coef_in, pix_in, image2, coef_out, pix_out,
                                 div, x1, qshr, tab, pitch, nblocks, b0, b1,
-                                wb, nblocks, top_row, bot_row, do_rebalance);
+                                wb, nblocks, top_row, bot_row, left_col,
+                                right_col, do_rebalance);
     return (int)launch_pass<false>(a, pre, nt, true, false,
                                    (cudaStream_t)stream);
   }

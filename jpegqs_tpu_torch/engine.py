@@ -31,12 +31,13 @@ colour paths always use padded planes.  Both paths give the same
 output when the callback never cancels.
 
 On a machine with more than one CUDA device, ``smooth`` without a
-callback shards large images by block rows over every device
-(parallel/sharded.py, the JAX package's auto-sharding without its 2-D
-grid): _shard_grid picks the shard count, _try_smooth_sharded runs the
-gray/per-component or the YCbCr flow, or declines where the JAX engine
-does.  Each shard's pass is kernel B7 over its real rows between
-exchanges of the ghost pixel lines.
+callback shards large images over every device (parallel/sharded.py, the
+JAX package's auto-sharding): _shard_grid picks the grid -- block rows
+first, and block columns too when an image has fewer block rows than
+devices -- and _try_smooth_sharded runs the gray/per-component or the
+YCbCr flow, or declines where the JAX engine does.  Each shard's pass is
+kernel B7 over its real blocks between exchanges of the ghost pixel
+lines.
 
 Entropy decode/encode stays on the host (host/jpegio.py).  Output
 planes, upsampled planes and the stop flag are bit-identical to
@@ -663,7 +664,7 @@ def _smooth_percomp(img, opts: QsOptions, device) -> SmoothResult:
 
 # ---------------------------------------------------------------------------
 # Auto-sharding over several CUDA devices (engine._shard_grid and
-# _try_smooth_sharded of the JAX package, row flow)
+# _try_smooth_sharded of the JAX package)
 # ---------------------------------------------------------------------------
 
 def shard_devices(dev: torch.device) -> list:
@@ -676,14 +677,17 @@ def shard_devices(dev: torch.device) -> list:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def _shard_grid(img, opts: QsOptions, ndev: int):
-    """The number of row shards for auto-sharding over ``ndev`` devices,
-    or None: more than one device, at least one iteration, an image of
-    at least JPEGQS_SHARD_MIN_BLOCKS blocks (default 16384: smaller ones
-    do not beat the exchanges' overhead), clean quant tables (the val<=1
-    and crafted-file shortcuts stay on one device) and sampling factors
-    up to 2.  Pad-to-divisible sharding lets any row count use every
-    device, up to the smallest component's block rows."""
+def _shard_grid(img, opts: QsOptions, ndev: int, allow_col=True):
+    """The (rows, cols) shard grid for auto-sharding over ``ndev``
+    devices, or None: more than one device, at least one iteration, an
+    image of at least JPEGQS_SHARD_MIN_BLOCKS blocks (default 16384:
+    smaller ones do not beat the exchanges' overhead), clean quant tables
+    (the val<=1 and crafted-file shortcuts stay on one device) and
+    sampling factors up to 2.  Pad-to-divisible sharding lets any count
+    use every device: rows are taken first, up to the smallest
+    component's block rows; columns pick up devices (``allow_col``) only
+    when an image has fewer block rows than devices (line-scan strips,
+    panoramas)."""
     import os
 
     comps = img.components
@@ -700,25 +704,64 @@ def _shard_grid(img, opts: QsOptions, ndev: int):
         if val <= 1 or val >= 0x800:
             return None
     r = min(ndev, min(c.height_in_blocks for c in comps))
-    return r if r >= 2 else None
+    c = 1
+    if allow_col and r < ndev:
+        c = max(1, min(ndev // r, min(x.width_in_blocks for x in comps)))
+    return (r, c) if r * c >= 2 else None
+
+
+def choose_grid(img, opts: QsOptions, ndev: int):
+    """_shard_grid's grid, or where a colour flow with UPSAMPLE_UV would
+    leave its luma fewer than two block columns a shard (its right tail's
+    source column must stay in the shard) the best row-only grid; None
+    where sharding does not apply."""
+    grid = _shard_grid(img, opts, ndev)
+    if grid is not None and grid[1] > 1 and \
+            _need_downsample(img, opts.flags) and \
+            opts.flags & UPSAMPLE_UV and \
+            img.components[0].width_in_blocks // grid[1] < 2:
+        grid = _shard_grid(img, opts, ndev, allow_col=False)
+    return grid
+
+
+def shard_layout(devices, grid):
+    """The first rows x cols of ``devices`` as make_sharded_smooth and
+    make_sharded_ycbcr_smooth take them: a flat list for one column, else
+    a list of rows."""
+    r, c = grid
+    devices = list(devices)[:r * c]
+    return devices if c == 1 else [devices[i * c:(i + 1) * c]
+                                    for i in range(r)]
 
 
 def _try_smooth_sharded(img, opts: QsOptions, devices):
-    """The image smoothed with its block rows sharded over ``devices``
+    """The image smoothed with its block grid sharded over ``devices``
     (a device may repeat), or None where sharding does not apply: no
-    iteration, _shard_grid declines, or a YCbCr colour flow whose planes
-    are not aligned or that has more than three components."""
+    iteration, the grid choice declines (choose_grid), or
+    _smooth_on_shards declines."""
+    from .parallel import sharded
+
+    if min(max(opts.niter, 0), ITER_MAX) == 0:
+        return None             # dequant-only: the fused path models it
+    grid = choose_grid(img, opts, len(devices))
+    if grid is None:
+        return None
+    return _smooth_on_shards(img, opts,
+                             sharded.Shards(shard_layout(devices, grid)))
+
+
+def _smooth_on_shards(img, opts: QsOptions, shards):
+    """The image smoothed on ``shards`` (a parallel/sharded.Shards: the
+    devices of this process, or of every rank of a multi-process job),
+    or None where a YCbCr colour flow's planes are not aligned or it has
+    more than three components.  The YCbCr colour flow runs its three
+    components together; otherwise each component runs on its own, with
+    the crafted-file stop propagated from one to the next."""
     from .parallel import sharded
 
     comps = img.components
     flags = opts.flags
     niter = min(max(opts.niter, 0), ITER_MAX)
-    if niter == 0:
-        return None             # dequant-only: the fused path models it
-    r = _shard_grid(img, opts, len(devices))
-    if r is None:
-        return None
-    devices = list(devices)[:r]
 
     def tabs(ci):
         qraw = np.asarray(comps[ci].quantval, np.int32)
@@ -740,7 +783,7 @@ def _try_smooth_sharded(img, opts: QsOptions, devices):
         if not aligned or len(comps) != 3:
             return None
         fn = sharded.make_sharded_ycbcr_smooth(
-            devices, hb_l=y.height_in_blocks, wb_l=y.width_in_blocks,
+            shards, hb_l=y.height_in_blocks, wb_l=y.width_in_blocks,
             hb_c=cb.height_in_blocks, wb_c=cb.width_in_blocks, ws=ws, hs=hs,
             flags=flags, niter=niter, img_w=img.width, img_h=img.height)
         oy, ocb, ocr, badv, ups = fn(plane(y), plane(cb), plane(cr),
@@ -753,6 +796,7 @@ def _try_smooth_sharded(img, opts: QsOptions, devices):
 
     # independent per-component sharding (gray, colour without the
     # colour paths, non-YCbCr components)
+    dev0 = shards.first
     for ci, comp in enumerate(comps):
         qraw = np.asarray(comp.quantval, np.int32)
         if not qraw.any():
@@ -761,13 +805,12 @@ def _try_smooth_sharded(img, opts: QsOptions, devices):
         if res.stop:
             # later components: plain dequantization, unclamped
             res.coefs[ci] = dequant_only(
-                torch.from_numpy(res.coefs[ci].reshape(hb * wb, 64)).to(
-                    devices[0]),
-                torch.from_numpy(qraw).to(devices[0])).cpu().numpy(
+                torch.from_numpy(res.coefs[ci].reshape(hb * wb, 64)).to(dev0),
+                torch.from_numpy(qraw).to(dev0)).cpu().numpy(
             ).reshape(hb, wb, 64)
             continue
         fn = sharded.make_sharded_smooth(
-            devices, hb=hb, wb=wb, flags=flags, niter=niter,
+            shards, hb=hb, wb=wb, flags=flags, niter=niter,
             luma=(ci == 0) or not img.is_ycbcr)
         out, badv = fn(plane(comp), *tabs(ci))
         # the tripping component itself keeps the guard's fallback,

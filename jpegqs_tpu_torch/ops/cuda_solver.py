@@ -18,9 +18,9 @@ The kernels of csrc/solver.cu:
   whole planes as column-slice views; B5 runs B2's kernel body, or on
   launches of few CTAs an SM its lane body (``use_lane_body``);
 - ``solve_range_pix`` (B7): the pass of B2, B3 or B4 over a block range
-  of a shard's ghost-extended grid, with the edges given by the caller,
-  into a range of a whole-size output: the sharded resident loop's pass
-  (parallel/sharded.py);
+  of a shard's ghost-extended grid, with the row and column edges given by
+  the caller, into a range of a whole-size output: the sharded resident
+  loop's pass on a row or a row x column grid (parallel/sharded.py);
 - ``peak_chains`` (T3): the card's fp32 peak probe, on no path.
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version
@@ -356,16 +356,24 @@ _PRE_JOINT, _PRE_LQ, _PRE_BORDERS = 0, 1, 2
 
 def check_range(S, wb, b0, b1, edges):
     """Raise unless blocks [b0, b1) of an S-block grid of rows wb blocks
-    wide read only blocks of the grid: a range that starts in the first
-    row needs that row's top edge flagged, one that ends in the last row
-    that row's bottom edge."""
-    top_row, bot_row = edges
+    wide read only blocks of the grid: a range that holds a block of the
+    first row needs that row's top edge flagged, one that holds a block of
+    the last row that row's bottom edge, one that holds a block of the
+    first column that column's left edge, and one that holds a block of
+    the last column that column's right edge.  ``edges = (top_row,
+    bot_row, left_col, right_col)``."""
+    top_row, bot_row, left_col, right_col = edges
     if wb < 1 or S % wb or not 0 <= b0 <= b1 <= S:
         raise ValueError(f"bad range [{b0}, {b1}) of {S} blocks, wb={wb}")
-    if b1 > b0 and ((b0 < wb and top_row != 0)
-                    or (b1 > S - wb and bot_row != S // wb - 1)):
+    if b1 == b0:
+        return
+    first_col = -(-b0 // wb) * wb < b1
+    last_col = b0 + (wb - 1 - b0 % wb) < b1
+    if ((b0 < wb and top_row != 0) or (b1 > S - wb and bot_row != S // wb - 1)
+            or (first_col and left_col != 0)
+            or (last_col and right_col != wb - 1)):
         raise ValueError(f"range [{b0}, {b1}) with edges {edges} reads "
-                         f"beyond the {S // wb}-row grid")
+                         f"beyond the {S // wb}x{wb} grid")
 
 
 def solve_range_pix(coef, pix, image2, div, x1, qshr, flags, do_rebalance,
@@ -378,9 +386,11 @@ def solve_range_pix(coef, pix, image2, div, x1, qshr, flags, do_rebalance,
     coef, pix int32[64, S] the whole planes of a grid with rows wb blocks
     wide (pix: the previous pass's pixels, from which each block's
     neighbourhood is read); image2 int32[100, S] or None; ``edges =
-    (top_row, bot_row)``: the grid row whose top edge replicates and the
-    one whose bottom edge does, -1 for none (the left and right edges are
-    the grid's columns).  Writes blocks [b0, b1) of coef_out and, when
+    (top_row, bot_row, left_col, right_col)``: the grid row whose top edge
+    replicates and the one whose bottom edge does, the grid column whose
+    left edge replicates and the one whose right edge does, -1 for none (a
+    row-only shard passes 0 and wb - 1 for the columns).  Writes blocks
+    [b0, b1) of coef_out and, when
     given, of pix_out (the IDCT of the result), both int32[64, S] that
     alias no input; their other blocks are left as they were."""
     S = coef.shape[1]
@@ -420,7 +430,7 @@ def solve_range_pix(coef, pix, image2, div, x1, qshr, flags, do_rebalance,
             coef.data_ptr(), pix.data_ptr(), _ptr(image2), coef_out.data_ptr(),
             _ptr(pix_out), div.data_ptr(), x1.data_ptr(), qshr.data_ptr(),
             ktab, pre, nt, pitch, S, wb, b0, b1,
-            edges[0], edges[1], int(bool(do_rebalance)),
+            *edges, int(bool(do_rebalance)),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     LAUNCHES[name] += 1

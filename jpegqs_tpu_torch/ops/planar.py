@@ -379,16 +379,20 @@ def range_halo10(pix, wb, b0, b1, edges):
     """The 10x10 halos int32[100, b1-b0] of blocks [b0, b1) of a plane
     pix int32[64, S] whose rows are wb blocks wide, read from the whole
     plane with the edges given, not derived from the position:
-    ``edges = (top_row, bot_row)``, the block row whose top line
-    replicates (no neighbour above is read) and the one whose bottom line
-    does; -1 for none.  The left and right edges are the grid's columns.
-    Corners as in blocks_halo10: the vertical ring goes on first."""
-    top_row, bot_row = edges
+    ``edges = (top_row, bot_row, left_col, right_col)``, the block row
+    whose top line replicates (no neighbour above is read) and the one
+    whose bottom line does, the block column whose left line replicates
+    and the one whose right line does; -1 for none.  Corners as in
+    blocks_halo10: the vertical ring goes on first, so at a block whose
+    side edge is not flagged the corner is the side neighbour's (on a
+    ghost-extended 2-D shard, the ghost column's, which holds the
+    diagonal shard's pixels)."""
+    top_row, bot_row, left_col, right_col = edges
     dev = pix.device
     b = torch.arange(b0, b1, device=dev)
-    row = b // wb
+    row, col = b // wb, b % wb
     t, d = row == top_row, row == bot_row
-    lft, rgt = b % wb == 0, b % wb == wb - 1
+    lft, rgt = col == left_col, col == right_col
     cols = torch.arange(8, device=dev)
 
     def column(x, c):
@@ -482,7 +486,7 @@ def _lowres_to_hires_blocks(x, hb_l, wb_l, hb_c, wb_c, ws, hs):
 
 def upsample_chroma_blocks(chroma_halo, luma2_halo, luma_pix, img_w, img_h,
                            ws, hs, hb_l, wb_l, hb_c, wb_c, row0=0,
-                           hb_l_total=None):
+                           hb_l_total=None, col0=0, wb_l_total=None):
     """UPSAMPLE_UV in block form (reference: quantsmooth.h:1851-2394,
     2691-2752): chroma_halo / luma2_halo int32[10, 10, n*Bc] (the
     component's pixels and the downsampled luma), luma_pix
@@ -499,11 +503,18 @@ def upsample_chroma_blocks(chroma_halo, luma2_halo, luma_pix, img_w, img_h,
     first global pixel row and ``hb_l_total`` the image's luma block
     rows.  Both tails stay inside one shard: the bottom tail and its
     source row lie in the last real block row, and the right tail's
-    source column in every row of the shard."""
+    source column in every row of the shard.  On a 2-D grid ``col0`` is
+    the shard's first global pixel column and ``wb_l_total`` the image's
+    luma block columns: the right tail spans less than a block column and
+    its source column lies at most one block column to its left, so it
+    stays inside the shard when the shard has two luma block columns or
+    more (the engine's narrow-plane fallback sees to it)."""
     w1 = (img_w + ws - 1) // ws
     h1 = (img_h + hs - 1) // hs
     if hb_l_total is None:
         hb_l_total = hb_l
+    if wb_l_total is None:
+        wb_l_total = wb_l
     a = luma2_halo.to(F32)
     b = chroma_halo.to(F32)
     scale, _, _ = _regression_f(a, b)
@@ -517,19 +528,23 @@ def upsample_chroma_blocks(chroma_halo, luma2_halo, luma_pix, img_w, img_h,
     out = torch.clamp(torch.trunc(val), 0, 255).to(I32)
 
     o5 = out.reshape(8, 8, -1, hb_l, wb_l)
-    hh, ww = hb_l_total * 8, wb_l * 8
+    hh, ww = hb_l_total * 8, wb_l_total * 8
     dev = out.device
     row_g = (torch.arange(8, device=dev).reshape(8, 1, 1, 1, 1)
              + 8 * torch.arange(hb_l, device=dev).reshape(1, 1, 1, hb_l, 1)
              + row0)
     col_g = (torch.arange(8, device=dev).reshape(1, 8, 1, 1, 1)
              + 8 * torch.arange(wb_l, device=dev).reshape(1, 1, 1, 1, wb_l))
+    if col0:
+        col_g = col_g + col0
     if w1 * ws < ww:
         # right-edge replicate from col w1*ws-1, first min(8,h1)*hs rows
-        # only (reference quirk, quantsmooth.h:1861 + 2390-2393)
+        # only (reference quirk, quantsmooth.h:1861 + 2390-2393); a shard
+        # that does not hold that column masks its result away
         rep_rows = min(min(8, h1) * hs, min(h1 * hs, hh))
         sc = w1 * ws - 1
-        src_col = o5[:, sc % 8, :, :, min(sc // 8, wb_l - 1)]  # [8, n, hb_l]
+        lbc = min(max(sc // 8 - col0 // 8, 0), wb_l - 1)
+        src_col = o5[:, sc % 8, :, :, lbc]                      # [8, n, hb_l]
         mask = (row_g < rep_rows) & (col_g >= w1 * ws)
         o5 = torch.where(mask, src_col[:, None, :, :, None], o5)
     if h1 * hs < hh:

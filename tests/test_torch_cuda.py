@@ -117,9 +117,9 @@ def test_launch_counts(cuda):
     out = torch.zeros_like(coef)
     for i2, flags in ((None, 0), (image2, JOINT_YUV), (None, LOW_QUALITY)):
         cuda_solver.solve_range_pix(coef, pix, i2, *tabs, flags, True, 5, 5,
-                                    15, (1, 2), out)
+                                    15, (1, 2, 0, 4), out)
     cuda_solver.solve_range_pix(coef, pix, None, *tabs, 0, True, 5, 5, 5,
-                                (1, 2), out)        # empty range: no launch
+                                (1, 2, 0, 4), out)  # empty range: no launch
     cuda_solver.idct_pix(coef.cpu())                 # plain: not counted
     assert cuda_solver.LAUNCHES == {
         "idct_pix": 1, "solve_rebalance_pix": 1,
@@ -271,15 +271,24 @@ def test_solve_range_on_card(cuda, hb, wb, flags, joint):
         np.int32)).to(cuda) if joint else None)
     tab = (None if flags & LOW_QUALITY
            else cuda_solver.solver_tables(flags, cuda))
-    ranges = [(wb + 3, S - wb, (-1, -1)), (wb + 3, wb + 4, (-1, -1)),
-              (wb + 1, min(wb + 13, S - wb), (-1, -1)),
-              (wb, (hb - 2) * wb, (1, hb - 3))]
+    cols = (0, wb - 1)
+    ranges = [(wb + 3, S - wb, (-1, -1, *cols)),
+              (wb + 3, wb + 4, (-1, -1, *cols)),
+              (wb + 1, min(wb + 13, S - wb), (-1, -1, *cols)),
+              (wb, (hb - 2) * wb, (1, hb - 3, *cols))]
+    if wb > 2:      # one row's inner columns, side edges inside the grid
+        ranges += [(2 * wb + 1, 3 * wb - 1, (-1, -1, 1, wb - 2)),
+                   (2 * wb + 1, 3 * wb - 1, (-1, -1, -1, -1))]
     for _ in range(8):
         b0 = int(rng.integers(0, S))
         b1 = int(rng.integers(b0 + 1, S + 1))
         top = 0 if b0 < wb else int(rng.integers(-1, hb))
         bot = hb - 1 if b1 > S - wb else int(rng.integers(-1, hb))
-        ranges.append((b0, b1, (top, bot)))
+        first_col = -(-b0 // wb) * wb < b1
+        last_col = b0 + (wb - 1 - b0 % wb) < b1
+        left = 0 if first_col else int(rng.integers(-1, wb))
+        right = wb - 1 if last_col else int(rng.integers(-1, wb))
+        ranges.append((b0, b1, (top, bot, left, right)))
     for b0, b1, edges in ranges:
         for reb, want_pix in ((True, True), (False, False)):
             got = [torch.zeros_like(coef) for _ in range(2)]
@@ -320,9 +329,9 @@ def test_joint_passes_on_large_launches_on_card(cuda, flags):
     got = [torch.zeros_like(coef) for _ in range(2)]
     want = [torch.zeros_like(coef) for _ in range(2)]
     cuda_solver.solve_range_pix(coef, pix, image2, *tabs, flags, True, wb, 0,
-                                S, (0, hb - 1), *got)
+                                S, (0, hb - 1, 0, wb - 1), *got)
     planar.solve_range_pix(coef, pix, image2, *tabs, tab, flags, True, wb, 0,
-                           S, (0, hb - 1), *want)
+                           S, (0, hb - 1, 0, wb - 1), *want)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -350,6 +359,142 @@ def test_sharded_run_on_card(cuda, monkeypatch, overlap):
         assert (got.upsampled is None) == (want.upsampled is None)
         for a, b in zip(got.upsampled or (), want.upsampled or ()):
             assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags,joint", [
+    (0, False), (DIAGONALS, False), (JOINT_YUV | DIAGONALS, True),
+    (JOINT_YUV | LOW_QUALITY | DIAGONALS, True),
+    (LOW_QUALITY | DIAGONALS, False)])
+@pytest.mark.parametrize("hb,wb,nr,nc", [(7, 41, 2, 3), (3, 70, 1, 4)])
+def test_solve_range_column_edges_on_card(cuda, hb, wb, nr, nc, flags,
+                                          joint):
+    """B7 vs its plain version on hand-built shards of a rows x columns
+    grid (ghost rows and columns, random where outside the image or dead;
+    right and bottom edges mid-shard), one range per local row over its
+    real columns, as the 2-D sharded loop launches it."""
+    rng = np.random.default_rng(hb + wb + flags)
+    hb_loc, wb_loc = -(-hb // nr), -(-wb // nc)
+    wb_eff = wb_loc + 2
+    S = (hb_loc + 2) * wb_eff
+    er, el = (hb - 1) // hb_loc, (hb - 1) % hb_loc
+    ecr, ecl = (wb - 1) // wb_loc, (wb - 1) % wb_loc
+    tab = (None if flags & LOW_QUALITY
+           else cuda_solver.solver_tables(flags, cuda))
+    for r in range(nr):
+        for c in range(nc):
+            coef, pix, tabs = _inputs(hb_loc + 2, wb_eff, r * nc + c, cuda)
+            image2 = (torch.from_numpy(rng.integers(0, 256, (100, S)).astype(
+                np.int32)).to(cuda) if joint else None)
+            rows = hb_loc if r < er else (el + 1 if r == er else 0)
+            cols = wb_loc if c < ecr else (ecl + 1 if c == ecr else 0)
+            edges = (1 if r == 0 else -1, el + 1 if r == er else -1,
+                     1 if c == 0 else -1, ecl + 1 if c == ecr else -1)
+            got = [torch.zeros_like(coef) for _ in range(2)]
+            want = [torch.zeros_like(coef) for _ in range(2)]
+            for i in range(1, rows + 1):
+                if not cols:
+                    continue
+                b0 = i * wb_eff + 1
+                cuda_solver.solve_range_pix(coef, pix, image2, *tabs, flags,
+                                            True, wb_eff, b0, b0 + cols,
+                                            edges, *got)
+                planar.solve_range_pix(coef, pix, image2, *tabs, tab, flags,
+                                       True, wb_eff, b0, b0 + cols, edges,
+                                       *want)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+
+
+def _same_planes(got, want):
+    return (got.stop == want.stop
+            and all(np.array_equal(a, b) for a, b in zip(got.coefs,
+                                                         want.coefs))
+            and (got.upsampled is None) == (want.upsampled is None)
+            and all(np.array_equal(a, b) for a, b in
+                    zip(got.upsampled or (), want.upsampled or ())))
+
+
+@pytest.mark.cuda
+def test_grid_run_on_card(cuda, monkeypatch):
+    """Strips through engine._try_smooth_sharded on four shards of one
+    card: a 4:2:0 strip with two chroma block rows at q6 and q2 takes the
+    2 x 2 grid, a one-row gray strip the 1 x 4 grid; each equals the
+    single-device run, and its passes went through B7, one launch per
+    shard row a pass."""
+    from jpegqs_tpu_torch import QsOptions, engine, synth
+    monkeypatch.setenv("JPEGQS_SHARD_MIN_BLOCKS", "0")
+    for img, q in ((synth.make_image(32, 1008, color=True, seed=4), 6),
+                   (synth.make_image(32, 1008, color=True, seed=4), 2),
+                   (synth.make_image(8, 1000, color=False, seed=5), 3)):
+        opts = QsOptions.from_quality(q, 3)
+        grid = engine._shard_grid(img, opts, 4)
+        assert grid[1] > 1
+        cuda_solver.reset_launches()
+        got = engine._try_smooth_sharded(img, opts, [cuda] * 4)
+        torch.cuda.synchronize()
+        b7 = sum(v for k, v in cuda_solver.LAUNCHES.items()
+                 if k.startswith("solve_range"))
+        rows = sum(-(-c.height_in_blocks // grid[0]) * grid[0]
+                   for c in img.components)
+        assert b7 == rows * grid[1] * 3, (b7, grid)
+        assert _same_planes(got, engine.smooth(img, opts))
+
+
+@pytest.mark.cuda
+def test_batch_forms_on_card(cuda):
+    """make_sharded_smooth's batch form on a 2 (data) x 2 (row) layout of
+    one card and smooth_batch_sharded on data 2 x row 1 equal the batch
+    engine on one device; dryrun_multichip(4) runs."""
+    from jpegqs_tpu_torch import QsOptions, batch, synth
+    from jpegqs_tpu_torch.parallel import sharded
+    imgs = [synth.make_image(64, 48, color=False, seed=s) for s in range(4)]
+    comp = imgs[0].components[0]
+    coefs = np.stack([np.asarray(im.components[0].coefs, np.int16).reshape(
+        comp.height_in_blocks, comp.width_in_blocks, 64) for im in imgs])
+    qraw = np.asarray(comp.quantval, np.int32)
+    run = sharded.make_sharded_smooth([[cuda] * 2] * 2,
+                                      hb=comp.height_in_blocks,
+                                      wb=comp.width_in_blocks, flags=0,
+                                      niter=3, batch=True)
+    out, bad = run(coefs, qraw, *make_quant_tables(qraw))
+    want = batch.smooth_plane_batch(coefs, comp.quantval, 0, 3)
+    assert np.array_equal(out.cpu().numpy(), want) and not bad.any()
+    colour = [synth.make_image(48, 64, color=True, seed=s) for s in range(3)]
+    opts = QsOptions.from_quality(6, 3)
+    got = sharded.smooth_batch_sharded(colour, opts, [[cuda], [cuda]])
+    for a, b in zip(got, batch.smooth_image_batch(colour, opts)):
+        assert _same_planes(a, b)
+    assert "OK" in sharded.dryrun_multichip(4)
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_card(cuda, tmp_path):
+    """The launcher's --local 2 through tools/multihost_worker.py: two
+    gloo ranks sharing the card, two shards each, on a synthetic 4:2:0
+    strip at q6 (a 2 x 2 grid across the ranks); rank 0's planes equal
+    the single-process run."""
+    import os
+    import subprocess
+    import sys
+    from jpegqs_tpu_torch import QsOptions, engine, synth
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    save = tmp_path / "planes.npz"
+    r = subprocess.run(
+        [sys.executable, os.path.join(repo, "tools", "multihost_worker.py"),
+         "--local", "2", "--shards-per-rank", "2", "--timeout", "300",
+         "--synth", "32,1008,1,4", "-q", "6", "-n", "3", "--save",
+         str(save)], cwd=repo, capture_output=True, text=True, timeout=360)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stderr.count("joined, backend gloo") == 2, r.stderr[-3000:]
+    img = synth.make_image(32, 1008, color=True, seed=4)
+    want = engine.smooth(img, QsOptions.from_quality(6, 3))
+    planes = np.load(save)
+    assert int(planes["stop"]) == want.stop
+    for i, c in enumerate(want.coefs):
+        assert np.array_equal(planes[f"coef{i}"], c)
+    assert np.array_equal(planes["up1"], want.upsampled[0])
+    assert np.array_equal(planes["up2"], want.upsampled[1])
 
 
 @pytest.mark.cuda

@@ -206,3 +206,40 @@ def test_default_device_is_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.resolve_device()
     assert engine.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_profiling_utilities(tmp_path):
+    """utils.profiling: PhaseTimer sums each phase's host time and
+    reports its MP/s and blocks/s; device_trace on the CPU writes a
+    Chrome trace of the region (the smooth's ops in it), as the CLI's
+    --trace does."""
+    import io
+    import json
+    from jpegqs_tpu_torch.utils.profiling import PhaseTimer, device_trace
+    gray = image_from_arrays(jax_jpegio.read_coefficients(_gray()))
+    opts = QsOptions.from_quality(3, 1)
+    timer = PhaseTimer()
+    for _ in range(2):
+        with timer.phase("smooth"):
+            jpegqs_tpu_torch.smooth(gray, opts, "cpu")
+    with timer.phase("idle"):
+        pass
+    assert set(timer.phases) == {"smooth", "idle"}
+    assert timer.phases["smooth"] > timer.phases["idle"] >= 0
+    out = io.StringIO()
+    timer.report(megapixels=0.5, blocks=4096, file=out)
+    lines = out.getvalue().splitlines()
+    assert lines[0].split()[0] == "smooth" and "MP/s" in lines[0] \
+        and "blocks/s" in lines[0] and lines[-1].split()[0] == "total"
+    with device_trace(tmp_path / "t", device="cpu") as prof:
+        res = jpegqs_tpu_torch.smooth(gray, opts, "cpu")
+    assert res.stop == 0 and prof.key_averages()
+    events = json.loads((tmp_path / "t" / "trace.json").read_text())
+    names = {e.get("name") for e in events["traceEvents"]}
+    assert any(n and n.startswith("aten::") for n in names)
+    src = tmp_path / "in.jpg"
+    src.write_bytes(_gray())
+    assert cli.main(["-i", "0", "--backend", "cpu", "--trace",
+                     str(tmp_path / "cli"), str(src),
+                     str(tmp_path / "out.jpg")]) == 0
+    assert (tmp_path / "cli" / "smooth_trace.json").stat().st_size > 0

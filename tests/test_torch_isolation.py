@@ -1,8 +1,11 @@
 """The port stands alone: no JAX, nothing of jpegqs_tpu.
 
 A fresh interpreter imports every module of jpegqs_tpu_torch and
-chip_smoke and runs the engine, the batch engine and the decode path on
-the CPU; neither ``jax`` nor ``jpegqs_tpu`` may appear in sys.modules.
+chip_smoke and runs the engine, the batch engine, the decode path, the
+2-D shard grid, the batch forms (dryrun_multichip), a one-rank
+torch.distributed job and the profiling utilities on the CPU; neither
+``jax`` nor ``jpegqs_tpu`` may appear in sys.modules.  No module of the
+package names either in an import statement.
 Also checks chip_smoke's golden digests (the SHA-256 of jpegqs_tpu's
 output planes and of its decoded pixels, which the card must reproduce)
 against the JAX package, and that chip_smoke fails without a card or
@@ -38,6 +41,8 @@ from jpegqs_tpu_torch import batch, cli, engine, options, specref, synth
 from jpegqs_tpu_torch.host import jpegio
 from jpegqs_tpu_torch.ops import (_build, colorout, cuda_solver, dct, joint,
                                   planar, plane, quant, upsample)
+from jpegqs_tpu_torch.parallel import multihost, run_multihost, sharded
+from jpegqs_tpu_torch.utils import profiling
 for i in (2, 13):       # gray q3 n3; 4:2:0 q6 n3 (JOINT_YUV, UPSAMPLE_UV)
     case = chip_smoke.GOLDEN_CASES[i]
     res = jpegqs_tpu_torch.smooth(chip_smoke.golden_image(case),
@@ -54,6 +59,18 @@ out = batch.smooth_image_batch(imgs, chip_smoke.golden_opts(
     chip_smoke.GOLDEN_CASES[2]), device="cpu")
 assert chip_smoke.digest(out[1].coefs, out[1].stop) == \
     chip_smoke.GOLDEN[chip_smoke.GOLDEN_CASES[2][0]]
+assert "OK" in sharded.dryrun_multichip(2, "cpu")
+import tempfile
+with tempfile.TemporaryDirectory() as d:
+    with profiling.device_trace(d, device="cpu"):
+        pass
+multihost.initialize(f"127.0.0.1:{run_multihost.free_port()}", 1, 0,
+                     device="cpu")
+case = chip_smoke.GOLDEN_CASES[2]
+res = multihost.smooth_image_distributed(
+    chip_smoke.golden_image(case), chip_smoke.golden_opts(case), ["cpu"] * 2)
+assert chip_smoke.digest(res.coefs, res.stop, res.upsampled) == \
+    chip_smoke.GOLDEN[case[0]]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jpegqs_tpu"))
 print("FOREIGN", bad)
@@ -73,6 +90,32 @@ def test_port_imports_no_jax():
                        timeout=300)
     assert r.returncode == 0, r.stderr
     assert "FOREIGN []" in r.stdout, r.stdout
+
+
+def test_no_module_imports_jax():
+    """No module of the package, and not chip_smoke.py or the worker it
+    starts ranks of, names jax or jpegqs_tpu in an import statement (the
+    probe above shows what runs; this covers every module, whatever
+    runs)."""
+    import ast
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "multihost_worker.py")]
+    for d, _, names in os.walk(os.path.join(REPO, "jpegqs_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] not in ("jax", "jaxlib",
+                                               "jpegqs_tpu"), (path, m)
 
 
 def _to_jax_image(img):

@@ -153,10 +153,10 @@ def position_edges(b, hb, wb):
 
 
 def descriptor_edges(b, wb, edges):
-    """B7's edge flags of blocks b: the rows of the descriptor's
-    (top_row, bot_row), the grid's columns."""
+    """B7's edge flags of blocks b: the rows and columns of the
+    descriptor's (top_row, bot_row, left_col, right_col)."""
     by, bx = b // wb, b % wb
-    return by == edges[0], by == edges[1], bx == 0, bx == wb - 1
+    return by == edges[0], by == edges[1], bx == edges[2], bx == edges[3]
 
 
 def halo_from_window(v, b, b0, flags):
@@ -329,13 +329,18 @@ def test_emulated_maps_match_plain(hb, wb, n, table, reb):
 
 
 # B7-lq's ranges of a shard's grid (hb rows with the ghosts, wb, b0, b1,
-# (top_row, bot_row)): tiles from b0 = wb + 3 (not a multiple of 16), a
-# single block, a range shorter than a tile, a one-block-wide grid, a grid
-# wider than a tile, and a bottom edge above dead rows that the last tile
-# reaches into
-RANGES = [(8, 5, 8, 30, (1, 5)), (7, 9, 12, 13, (-1, -1)),
-          (6, 7, 8, 20, (1, -1)), (9, 1, 2, 6, (1, 5)),
-          (5, 37, 40, 148, (-1, 3)), (9, 13, 13, 104, (1, 7))]
+# (top_row, bot_row, left_col, right_col)): tiles from b0 = wb + 3 (not a
+# multiple of 16), a single block, a range shorter than a tile, a
+# one-block-wide grid, a grid wider than a tile, and a bottom edge above
+# dead rows that the last tile reaches into; then one row's real columns
+# of a 2-D shard (ghost columns on both sides, the left edge at column 1
+# and the right one mid-shard at 5 or 18, or no side edge), whose tile
+# reaches past the row into the ghost column and the next row
+RANGES = [(8, 5, 8, 30, (1, 5, 0, 4)), (7, 9, 12, 13, (-1, -1, 0, 8)),
+          (6, 7, 8, 20, (1, -1, 0, 6)), (9, 1, 2, 6, (1, 5, 0, 0)),
+          (5, 37, 40, 148, (-1, 3, 0, 36)), (9, 13, 13, 104, (1, 7, 0, 12)),
+          (6, 7, 8, 13, (1, -1, 1, 5)), (6, 7, 22, 27, (-1, 4, -1, -1)),
+          (5, 20, 21, 39, (-1, -1, 1, 18))]
 
 
 @pytest.mark.parametrize("reb", [True, False])
@@ -344,10 +349,12 @@ def test_emulated_range_matches_plain(hb, wb, b0, b1, edges, reb):
     torch.set_num_threads(1)
     coef, pix, tabs = _case(hb, wb, 1, "random", hb * 100 + wb + b0)
     S = hb * wb
-    # rows an edge forbids reading: above top_row, below bot_row
-    row = torch.arange(S) // wb
-    top, bot = edges
-    banned = (row < top) | ((row > bot) & (bot >= 0))
+    # blocks an edge forbids reading: above top_row, below bot_row, left
+    # of left_col, right of right_col
+    row, col = torch.arange(S) // wb, torch.arange(S) % wb
+    top, bot, left, right = edges
+    banned = ((row < top) | ((row > bot) & (bot >= 0)) | (col < left)
+              | ((col > right) & (right >= 0)))
     pixf = torch.where(banned[None], torch.tensor(np.nan), pix.to(F32))
     got, got_pix = emulate_b7(coef, pixf, *tabs, wb, b0, b1, edges, reb)
     want = [torch.zeros_like(coef) for _ in range(2)]

@@ -113,7 +113,7 @@ def test_b7_plain_matches_single_device(flags, joint, hb, wb, n):
     S = (hb_loc + 2) * wb
     for r in range(er + 1):
         real = hb_loc if r < er else el + 1
-        edges = (1 if r == 0 else -1, el + 1 if r == er else -1)
+        edges = (1 if r == 0 else -1, el + 1 if r == er else -1, 0, wb - 1)
         ext = [None if x is None else _ghosted(x, r, hb_loc, wb, rng)
                for x in (coef, pix, image2)]
         whole = [torch.zeros((64, S), dtype=torch.int32) for _ in range(2)]
@@ -138,14 +138,19 @@ def test_b7_range_checks():
     """A range that would read beyond the grid raises before it runs."""
     coef, pix, _, tabs, _ = _plane_case(3, 4, 0, False)
     out = torch.zeros_like(coef)
-    for b0, b1, edges in ((0, 4, (-1, 2)), (8, 12, (0, -1)), (0, 13, (0, 2)),
-                          (5, 3, (0, 2))):
+    for b0, b1, edges in ((0, 4, (-1, 2, 0, 3)), (8, 12, (0, -1, 0, 3)),
+                          (0, 13, (0, 2, 0, 3)), (5, 3, (0, 2, 0, 3)),
+                          (4, 5, (0, 2, -1, 3)), (6, 8, (0, 2, 0, -1)),
+                          (7, 9, (0, 2, 1, 2))):
         with pytest.raises(ValueError):
             cuda_solver.solve_range_pix(coef, pix, None, *tabs, 0, True, 4,
                                         b0, b1, edges, out)
     with pytest.raises(ValueError):
         cuda_solver.solve_range_pix(coef, pix, None, *tabs, 0, True, 4, 0,
-                                    12, (0, 2), out, pix)
+                                    12, (0, 2, 0, 3), out, pix)
+    # a range of inner columns reads its side neighbours, so needs no flag
+    cuda_solver.solve_range_pix(coef, pix, None, *tabs, 0, True, 4, 5, 7,
+                                (0, 2, -1, -1), out)
 
 
 # ---------------------------------------------------------------------------

@@ -48,11 +48,17 @@ body, above them B3's design.  Where the tree's B5 wrapper takes a
 1/4 .. 2 CTAs an SM (kernel-only): where their times cross is the size
 at which B5 changes body.
 
+Last, the row flow's device window through TREE's make_sharded_* functions
+(``sharded_ms``): the 4032x3024 frame at q6 n3 on 2 and 4 shards of this
+card and the gray frame at q0 n3 on 4, as chip_smoke.phase_sharded runs
+them.
+
 Prints the ptxas lines of TREE's build, then one JSON line: the card
 (nvidia-smi name and power limit), the tree, per configuration the median
 of 20 CUDA-event timed launches (ms) and the profiler's kernel-only time
 per launch over 20 (kernel_ms), per m the scaling times and, where
-measured, B5's bodies (b5_bodies_ms).  Exits 1 without a CUDA device.
+measured, B5's bodies (b5_bodies_ms), and the sharded runs' medians of 5
+(sharded_ms).  Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -74,6 +80,55 @@ def load_here(name, rel):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def b7_edges(cuda_solver, edges, wb):
+    """A row shard's edges as TREE's B7 takes them: (top_row, bot_row,
+    left_col, right_col) with the grid's columns, or (top_row, bot_row)
+    in a checkout from before B7 took column edges."""
+    four = (*edges, 0, wb - 1)
+    try:
+        cuda_solver.check_range(wb, wb, 0, 0, four)
+    except ValueError:
+        return tuple(edges)
+    return four
+
+
+def sharded_ms(smoke, torch, np, engine, sharded, synth):
+    """The row flow's device window (CUDA events, median of 5, inputs on
+    the card) through TREE's make_sharded_* functions, over shards of this
+    card: the 4032x3024 4:2:0 frame at q6 n3 on 2 and 4 shards, the 2.1 MP
+    gray frame at q0 n3 on 4 (chip_smoke.phase_sharded's runs)."""
+    from jpegqs_tpu_torch import QsOptions
+    from jpegqs_tpu_torch.ops.quant import make_quant_tables
+    aligned = synth.make_image(*smoke.ALIGNED_HW, color=True, seed=0)
+    gray = synth.make_image(*smoke.GRAY_HW, color=False, seed=0)
+
+    def inputs(c):
+        qraw = np.asarray(c.quantval, np.int32)
+        return (smoke.to_dev(np.asarray(c.coefs, np.int16).reshape(
+            c.height_in_blocks, c.width_in_blocks, 64)),
+            [smoke.to_dev(t) for t in (qraw, *make_quant_tables(qraw))])
+
+    out = {}
+    y, cb = aligned.components[:2]
+    ins = [inputs(c) for c in aligned.components]
+    for n in (2, 4):
+        fn = sharded.make_sharded_ycbcr_smooth(
+            ["cuda"] * n, hb_l=y.height_in_blocks, wb_l=y.width_in_blocks,
+            hb_c=cb.height_in_blocks, wb_c=cb.width_in_blocks, ws=2, hs=2,
+            flags=QsOptions.from_quality(6, 3).flags, niter=3,
+            img_w=aligned.width, img_h=aligned.height)
+        out[f"4032x3024 q6 n3, {n} shards"] = smoke.cuda_ms(
+            lambda: fn(*(p for p, _ in ins), *(t for _, t in ins)), 5)
+    c = gray.components[0]
+    p, t = inputs(c)
+    fn = sharded.make_sharded_smooth(
+        ["cuda"] * 4, hb=c.height_in_blocks, wb=c.width_in_blocks,
+        flags=QsOptions.from_quality(0, 3).flags, niter=3)
+    out["1920x1080 gray q0 n3, 4 shards"] = smoke.cuda_ms(lambda: fn(p, *t),
+                                                          5)
+    return out
 
 
 def main() -> int:
@@ -162,6 +217,7 @@ def main() -> int:
         ext = [None if x is None else smoke.shard_ext(x, r, n, w)
                for x in xs]
         real, edges = smoke.shard_rows(r, h, sharded._pad_to(h, n) // n)
+        edges = b7_edges(cuda_solver, edges, w)
         outs = [torch.empty_like(ext[0]) for _ in range(2)]
         for what, flags in sets:
             args = (*ext, *t, flags, True, w, w, (real + 1) * w, edges, *outs)
@@ -188,7 +244,8 @@ def main() -> int:
 
         def b7_joint(flags):
             return lambda: b7(scoef, spix, simg2, *stabs, flags, True, sw, 0,
-                              n, (0, sh - 1), *souts)
+                              n, b7_edges(cuda_solver, (0, sh - 1), sw),
+                              *souts)
         row = {
             "B2 NT 144": smoke.cuda_ms(lambda: b2(
                 scoef, spix, *stabs, q[3], True, sh, sw), REPS),
@@ -225,7 +282,9 @@ def main() -> int:
                 for nt, f in ((144, 3), (242, 4)) for lanes in (True, False)}
     print(json.dumps({"card": card, "tree": tree, "reps": REPS, "ms": ms,
                       "kernel_ms": kernel_ms, "scaling_ms": scaling,
-                      "b5_bodies_ms": bodies}), flush=True)
+                      "b5_bodies_ms": bodies,
+                      "sharded_ms": sharded_ms(smoke, torch, np, engine,
+                                               sharded, synth)}), flush=True)
     return 0
 
 
