@@ -89,13 +89,20 @@ on any mismatch:
    each against the single-process run, with rank 0's launches and the
    host time of its exchanges; NCCL where there are two cards;
 15. where the machine has libjpeg's headers, the transcode path,
-   smooth_many and the CLI's --batch against smooth_jpeg_bytes.
+   smooth_many and the CLI's --batch against smooth_jpeg_bytes;
+16. the differential fuzz, tools/fuzz_port.py's card mode: the digests of
+   tools/fuzz_port_golden.json (jpegqs_tpu's output on 48 fixed cases),
+   then random synthetic cases for FUZZ_SECONDS, each through the fused,
+   progress (with cancels), grid, batch and decode paths on the card, bit
+   for bit against the port's CPU run and its single-device run; B1-B7
+   each launched.
 
 Its last line is {"ok": true, "device": {...}}; the line before it is
 nvidia-smi's name and power limit, and before that one JSON line of
 per-kernel numbers (B1-B7, T3, T1/T2), and before that one summary line
 per main-path, batch, progress-path, sharded, 2-D grid, batch data
-parallel and multi-process run.  Without a CUDA device it
+parallel and multi-process run; the fuzz phase's line comes before
+those.  Without a CUDA device it
 exits 1 and prints no result.
 """
 
@@ -330,22 +337,27 @@ def cuda_ms(fn, reps=5):
     return statistics.median(times)
 
 
+KERNEL_MS_WINDOWS = 6
+
+
 def kernel_ms(fn, reps=5):
     """Device time of one launch of the one kernel fn() launches:
     torch.profiler over ``reps`` warm runs, the kernel's time summed over
     the launches the profiler recorded, divided by their count (it may
     record fewer than ran, or none: then the window is tried again, up to
-    three times).  Device activity only: late in a run a window that also
-    traces the host has recorded the host's calls and none of the kernels,
-    window after window, where a device-only window records them.  Kernel
-    time only: an event pair around one launch also counts the gap while
-    the host wrapper enqueues it."""
+    KERNEL_MS_WINDOWS times, and after that the time is None, "not
+    measured": three empty device-only windows in a row have been seen,
+    on a 2-D shard's B7 launches).  Device activity only: late in a run a
+    window that also traces the host has recorded the host's calls and
+    none of the kernels, window after window, where a device-only window
+    records them.  Kernel time only: an event pair around one launch also
+    counts the gap while the host wrapper enqueues it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):      # a window may record nothing: try it again
+    for _ in range(KERNEL_MS_WINDOWS):  # a window may record nothing
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -357,7 +369,13 @@ def kernel_ms(fn, reps=5):
         if launches:
             return (sum(e.self_device_time_total for e in rows) / 1e3
                     / launches)
-    raise RuntimeError("the profiler recorded no kernel")
+    log(f"kernel_ms: the profiler recorded no kernel in "
+        f"{KERNEL_MS_WINDOWS} windows: not measured")
+    return None
+
+
+def ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def host_ms(fn, reps=5):
@@ -974,7 +992,7 @@ def phase_full_plane(torch, img, gray, stats, card, t3_rate):
                "plain_ms": cuda_ms(plain, plain_reps),
                **bound_row(nbytes, ops, t3_rate)}
         log(f"{name} {what}: kernel {row['ms']:.4f} ms (profiler: "
-            f"{row['kernel_ms']:.4f} ms kernel only), plain "
+            f"{ms_text(row['kernel_ms'])} kernel only), plain "
             f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}; {row['bound_ms_t3']:.4f} ms at T3's fp32 "
             f"rate) [{card}]")
@@ -1807,7 +1825,7 @@ def phase_b7_full_shard(torch, img, stats, card, t3_rate):
         what = (f"on {nb} blocks (last of 4 {plane} shards, flags "
                 f"{FLAG_NAMES.get(flags, flags)})")
         log(f"B7 {key} {what}: kernel {row['ms']:.4f} ms (profiler: "
-            f"{row['kernel_ms']:.4f} ms kernel only), plain "
+            f"{ms_text(row['kernel_ms'])} kernel only), plain "
             f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}; {row['bound_ms_t3']:.4f} ms at T3's fp32 "
             f"rate) [{card}]")
@@ -2207,7 +2225,7 @@ def phase_b7_grid(torch, stats, card, t3_rate, strip):
                     f"{len(ranges)} launches of one row, flags "
                     f"{FLAG_NAMES.get(flags, flags)}")
             log(f"B7 {key} {what}: {row['ms']:.4f} ms a pass (profiler: "
-                f"{row['kernel_ms']:.4f} ms a launch, kernel only), plain "
+                f"{ms_text(row['kernel_ms'])} a launch, kernel only), plain "
                 f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}; {row['bound_ms_t3']:.4f} ms at T3's "
                 f"fp32 rate) [{card}]")
@@ -2560,6 +2578,44 @@ def phase_transcode(torch, card):
         f"[{card}]")
 
 
+FUZZ_SEED = 11
+FUZZ_SECONDS = 60
+# B1-B7 by the launch counters that stand for each
+FUZZ_KERNELS = {
+    "B1": ("idct_pix",), "B2": ("solve_rebalance_pix",),
+    "B3": ("solve_fused_pix_joint",), "B4": ("solve_fused_pix_lq",),
+    "B5": ("solve_rebalance", "solve_rebalance_lanes"),
+    "B6": ("solve_fused_joint", "solve_fused_lq"),
+    "B7": ("solve_range_pix", "solve_range_pix_joint", "solve_range_pix_lq")}
+
+
+def phase_fuzz(torch, card):
+    """tools/fuzz_port.py's card mode in this process: every entry of
+    tools/fuzz_port_golden.json (jpegqs_tpu's digests), then random synth
+    cases of FUZZ_SEED for FUZZ_SECONDS, every path on the card against
+    the port's CPU run and its single-device run.  Nothing is caught: a
+    mismatch raises with its repro line.  B1-B7 must each have launched."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "fuzz_port", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tools", "fuzz_port.py"))
+    fuzz_port = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fuzz_port)
+    cuda_solver.reset_launches()
+    stats = fuzz_port.fuzz(DEVICE, FUZZ_SEED, seconds=FUZZ_SECONDS, log=None)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_solver.LAUNCHES.items() if v}
+    idle = [b for b, keys in FUZZ_KERNELS.items()
+            if not any(launches.get(k) for k in keys)]
+    assert not idle, f"fuzz: kernels never launched: {idle}"
+    log(f"fuzz (tools/fuzz_port.py, the card against the port's CPU run): "
+        f"{stats['golden']} golden entries in {stats['golden_s']:.1f} s, "
+        f"then {stats['cases']} random synth cases of seed {FUZZ_SEED} in "
+        f"{stats['seconds']:.1f} s, 0 mismatches; paths: "
+        f"{fuzz_port.paths_line(stats)}; launches {launches} [{card}]")
+
+
 REPLACES = {
     "idct_pix": "jpegqs_tpu/ops/pallas_solver.py:883",
     "solve_rebalance_pix": "jpegqs_tpu/ops/pallas_solver.py:902",
@@ -2684,6 +2740,8 @@ def main() -> int:
     unused = [k for k in launches if k not in OFF_PATH and not launches[k]]
     assert not unused, f"kernels the main paths never launched: {unused}"
     phase_transcode(torch, card)
+    phase_fuzz(torch, card)
+    stamp("fuzz")
     for line in (summaries + batch_summaries + progress_summaries
                  + sharded_summaries):
         log(line)

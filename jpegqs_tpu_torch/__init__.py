@@ -11,8 +11,9 @@ shards a large image's block rows over every device
 (parallel/sharded.py).  The batch engine (batch.py) runs many same-shape
 images as one block axis through the same kernels, and
 ``decode_smoothed`` decodes the smoothed planes to pixels on the device.
-The 2-D shard grid and multi-process sharding are not ported yet.  It
-imports neither JAX nor anything of ``jpegqs_tpu``.
+Sharding also runs on a rows x columns grid, over a data x row layout
+for batches and across processes (parallel/multihost.py).  It imports
+neither JAX nor anything of ``jpegqs_tpu``.
 
 Public API:
   smooth(img, opts, device=None)            -- coefficient-level engine

@@ -59,6 +59,7 @@ import torch
 from .options import (JOINT_YUV, UPSAMPLE_UV, LOW_QUALITY, NO_REBALANCE,
                       NO_REBALANCE_UV, ITER_MAX, QsOptions)
 from .ops import cuda_solver, planar
+from .ops._build import KernelError
 from .ops.dct import fdct_float
 from .ops.plane import downsample_plane
 from .ops.quant import make_quant_tables, roundf, c_f32_to_i32
@@ -829,9 +830,10 @@ def smooth(img, opts: QsOptions, device=None) -> SmoothResult:
     rows sharded over every card when there is more than one (and the
     image is large enough, _shard_grid); with one it runs component by
     component and pass by pass so the callback can fire (and cancel)
-    between them (_smooth_percomp).  A device allocation failure
-    degrades to plain host-side dequantization, like the reference's
-    malloc-failure path."""
+    between them (_smooth_percomp).  An allocation failure, on the card
+    or on the CPU (_is_oom), degrades to plain host-side dequantization,
+    like the reference's malloc-failure path; every other error
+    propagates."""
     dev = resolve_device(device)
     try:
         if opts.progress is None:
@@ -839,8 +841,30 @@ def smooth(img, opts: QsOptions, device=None) -> SmoothResult:
             res = _try_smooth_sharded(img, opts, devices) if devices else None
             return res if res is not None else _smooth_fused(img, opts, dev)
         return _smooth_percomp(img, opts, dev)
-    except torch.cuda.OutOfMemoryError:
+    except Exception as e:
+        if not _is_oom(e):
+            raise
         return _smooth_degraded(img, opts)
+
+
+def _is_oom(e) -> bool:
+    """An allocation failure, the condition the reference meets with its
+    malloc-failure degradation (quantsmooth.h:2548-2566; the port's copy
+    of jpegqs_tpu.engine._is_oom): torch's OutOfMemoryError, the JAX
+    package's out-of-memory texts, or the CPU allocator's failure, a
+    plain RuntimeError ("DefaultCPUAllocator: can't allocate memory").
+    A kernel that did not build or launch (_build.KernelError) is never
+    one."""
+    if isinstance(e, KernelError):
+        return False
+    if isinstance(e, torch.OutOfMemoryError):
+        return True
+    s = f"{type(e).__name__}: {e}"
+    return ("RESOURCE_EXHAUSTED" in s or "Out of memory" in s
+            or "out of memory" in s
+            or ("DefaultCPUAllocator" in s
+                and ("can't allocate memory" in s
+                     or "not enough memory" in s)))
 
 
 def _smooth_degraded(img, opts: QsOptions) -> SmoothResult:

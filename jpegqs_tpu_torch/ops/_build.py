@@ -60,6 +60,11 @@ def build_dir() -> str:
         os.path.dirname(_PKG_DIR), "build", "jpegqs_tpu_torch")
 
 
+class KernelError(RuntimeError):
+    """A kernel that did not build or did not launch.  The engine never
+    degrades on one (engine._is_oom), whatever its text says."""
+
+
 def find_nvcc() -> str:
     """nvcc from CUDA_HOME, the default toolkit path, or PATH."""
     cands = []
@@ -73,8 +78,8 @@ def find_nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
-                       "with the CUDA toolkit (set CUDA_HOME)")
+    raise KernelError("nvcc not found: the CUDA kernels build on a machine "
+                      "with the CUDA toolkit (set CUDA_HOME)")
 
 
 def library_path() -> str:
@@ -97,7 +102,7 @@ def build() -> str:
                        capture_output=True, text=True)
     if r.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        raise KernelError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
     with open(path + ".log", "w") as f:
         f.write(r.stderr)
     os.replace(tmp, path)          # atomic: concurrent builders agree

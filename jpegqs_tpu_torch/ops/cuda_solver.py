@@ -146,7 +146,7 @@ def _ptr(t):
 
 def _raise_on(err, name):
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        raise _build.KernelError(f"{name}: CUDA error {err} at launch")
 
 
 def idct_pix(coef):

@@ -17,6 +17,8 @@ import numpy as np
 from .host.jpegio import ComponentData, JpegImage, JCS_YCBCR
 
 JCS_GRAYSCALE = 1
+JCS_RGB = 2
+JCS_CMYK = 4
 
 # IJG standard tables (ITU T.81 Annex K.1), natural order
 STD_LUMA = np.array([
@@ -35,21 +37,40 @@ STD_CHROMA = np.array([
     47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32, dtype=np.int64)
 
 
-def synth_image(h, w, seed=0, color=False):
-    """Deterministic synthetic image with photo-like content: uint8
-    (h, w) gray or (h, w, 3) RGB (the "photo" kind of the test corpus
-    generator)."""
+KINDS = ("photo", "edges", "flat", "noise")
+
+
+def synth_image(h, w, seed=0, color=False, kind="photo"):
+    """Deterministic synthetic image: uint8 (h, w) gray, (h, w, 3) RGB
+    or, with ``color="cmyk"``, (h, w, 4) CMYK -- the generator of the
+    test corpus, ``tests/util.synth_image``: "photo" (photo-like
+    content, the default), "edges", "flat" or "noise"."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
-    img = (128 + 60 * np.sin(xx * 0.07 + np.sin(yy * 0.05) * 3)
-           + 40 * np.cos(yy * 0.11) + 15 * np.sin((xx + yy) * 0.21))
-    img += rng.normal(0, 4, (h, w))
-    img[(yy.astype(int) // 24 + xx.astype(int) // 31) % 5 == 0] += 55
+    if kind == "photo":
+        img = (128 + 60 * np.sin(xx * 0.07 + np.sin(yy * 0.05) * 3)
+               + 40 * np.cos(yy * 0.11) + 15 * np.sin((xx + yy) * 0.21))
+        img += rng.normal(0, 4, (h, w))
+        img[(yy.astype(int) // 24 + xx.astype(int) // 31) % 5 == 0] += 55
+    elif kind == "edges":
+        img = np.full((h, w), 90.0)
+        img[(xx.astype(int) // 13) % 2 == 0] += 100
+        img[(yy.astype(int) // 9) % 3 == 0] -= 60
+        img += rng.normal(0, 2, (h, w))
+    elif kind == "flat":
+        img = np.full((h, w), 130.0) + rng.normal(0, 1.5, (h, w))
+    elif kind == "noise":
+        img = rng.uniform(0, 255, (h, w))
+    else:
+        raise ValueError(kind)
     g = np.clip(img, 0, 255).astype(np.uint8)
     if not color:
         return g
     r = np.clip(img + 30 * np.sin(xx * 0.03), 0, 255).astype(np.uint8)
     b = np.clip(img - 25 * np.cos(yy * 0.04), 0, 255).astype(np.uint8)
+    if color == "cmyk":
+        k = np.clip(255 - img * 0.7, 0, 255).astype(np.uint8)
+        return np.stack([r, g, b, k], axis=-1)
     return np.stack([r, g, b], axis=-1)
 
 
@@ -80,13 +101,14 @@ def _plane_coefs(plane, hb, wb, qtbl):
         np.int16).reshape(hb, wb, 64)
 
 
-def make_image(h, w, color=False, seed=0, quality=75, sampling=(2, 2)):
-    """A JpegImage of the synthetic image: gray, or YCbCr with the luma
-    sampling factors ``sampling`` = (h, v) and 1x1 chroma: (1, 1) 4:4:4,
-    (2, 1) 4:2:2, (1, 2) 4:4:0, (2, 2) 4:2:0 (the default), (4, 1)
-    4:1:1.  Chroma is box-averaged over each h x v cell, the edge
+def make_image(h, w, color=False, seed=0, quality=75, sampling=(2, 2),
+               kind="photo"):
+    """A JpegImage of the synthetic image of ``kind``: gray, or YCbCr with
+    the luma sampling factors ``sampling`` = (h, v) and 1x1 chroma: (1, 1)
+    4:4:4, (2, 1) 4:2:2, (1, 2) 4:4:0, (2, 2) 4:2:0 (the default), (4, 1)
+    4:1:1, (4, 2).  Chroma is box-averaged over each h x v cell, the edge
     replicated where the image does not fill the last cell."""
-    pix = synth_image(h, w, seed, color)
+    pix = synth_image(h, w, seed, color, kind)
     ceil = lambda a, b: -(-a // b)
     if not color:
         qt = quality_table(STD_LUMA, quality)
@@ -126,4 +148,57 @@ def make_image(h, w, color=False, seed=0, quality=75, sampling=(2, 2)):
             component_id=cid, h_samp_factor=sh, v_samp_factor=sv,
             quant_tbl_no=tno, width_in_blocks=wb, height_in_blocks=hb,
             quantval=qt, coefs=_plane_coefs(np.round(plane), hb, wb, qt)))
+    return img
+
+
+def make_planes_image(h, w, ncomp=3, seed=0, quality=75, kind="photo"):
+    """A JpegImage of ``ncomp`` (3: RGB, 4: CMYK) 1x1-sampled components
+    that are not YCbCr, each channel of the synthetic image coded as it
+    is, the first under the luma table and the others under the chroma
+    table (a libjpeg file of that colour space without the transform):
+    the engine smooths each as luma and runs no colour path."""
+    pix = synth_image(h, w, seed, "cmyk" if ncomp == 4 else True, kind)
+    img = JpegImage(width=w, height=h,
+                    jpeg_color_space=JCS_CMYK if ncomp == 4 else JCS_RGB,
+                    progressive=False, max_h_samp_factor=1,
+                    max_v_samp_factor=1)
+    hb, wb = -(-h // 8), -(-w // 8)
+    tables = (quality_table(STD_LUMA, quality),
+              quality_table(STD_CHROMA, quality))
+    for ci in range(ncomp):
+        qt = tables[min(ci, 1)]
+        img.components.append(ComponentData(
+            component_id=ci + 1, h_samp_factor=1, v_samp_factor=1,
+            quant_tbl_no=min(ci, 1), width_in_blocks=wb, height_in_blocks=hb,
+            quantval=qt.copy(), coefs=_plane_coefs(pix[..., ci], hb, wb, qt)))
+    return img
+
+
+DAMAGES = ("qtable", "coef", "ones")
+
+
+def damage(img, kind, comp, seed=0):
+    """``img`` with component ``comp`` damaged, in place (the engine's
+    special inputs, quantsmooth.h:2500-2504 and 2596-2610): "qtable", one
+    quantizer of at least 0x800 (a crafted file: the whole image is only
+    dequantized); "coef", one coefficient whose dequantized value passes
+    int16 (the dequantization guard trips); "ones", a table of all ones
+    (already processed: no smoothing pass).  Where is drawn from
+    ``seed``.  Returns img."""
+    rng = np.random.default_rng(seed)
+    c = img.components[comp]
+    if kind == "qtable":
+        c.quantval = c.quantval.copy()
+        c.quantval[rng.integers(64)] = rng.integers(0x800, 0x10000)
+    elif kind == "coef":
+        q = int(c.quantval.max())
+        k = int(np.argmax(c.quantval))
+        v = min(32767 // q + 1 + int(rng.integers(0, 64)), 32767)
+        c.coefs = c.coefs.copy()
+        c.coefs[rng.integers(c.height_in_blocks), rng.integers(
+            c.width_in_blocks), k] = v if rng.random() < 0.5 else -v
+    elif kind == "ones":
+        c.quantval = np.ones(64, np.uint16)
+    else:
+        raise ValueError(kind)
     return img

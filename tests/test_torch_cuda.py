@@ -613,3 +613,24 @@ def test_assemble_waits_for_its_own_batch(cuda):
     assert spinning
     for im, res in zip(imgs, got):
         assert _same_result(res, engine.smooth(im, opts, "cpu"))
+
+
+@pytest.mark.cuda
+def test_fuzz_golden_replay_on_card(cuda):
+    """tools/fuzz_port_golden.json on the card: every entry's digest of
+    jpegqs_tpu's output on the fused and the progress path, and its
+    decoded pixels' where recorded; B1-B6 launched."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "fuzz_port.py")
+    spec = importlib.util.spec_from_file_location("fuzz_port", path)
+    fuzz_port = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fuzz_port)
+    cuda_solver.reset_launches()
+    assert fuzz_port.replay_golden(cuda) == fuzz_port.GOLDEN_CASES
+    for name in ("idct_pix", "solve_rebalance_pix", "solve_fused_pix_joint",
+                 "solve_fused_pix_lq", "solve_fused_joint", "solve_fused_lq"):
+        assert cuda_solver.LAUNCHES[name] > 0, name
+    assert cuda_solver.LAUNCHES["solve_rebalance"] \
+        + cuda_solver.LAUNCHES["solve_rebalance_lanes"] > 0

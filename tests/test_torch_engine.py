@@ -17,7 +17,7 @@ from jpegqs_tpu.options import QsOptions as JaxOptions
 import jpegqs_tpu_torch
 from jpegqs_tpu_torch import QsOptions, cli, engine
 from jpegqs_tpu_torch.host.jpegio import image_from_arrays
-from jpegqs_tpu_torch.ops import cuda_solver
+from jpegqs_tpu_torch.ops import _build, cuda_solver
 from util import make_jpeg
 
 torch.set_num_threads(1)
@@ -121,13 +121,27 @@ def test_crafted_inputs_match_spec(name):
         assert np.array_equal(got.coefs[0], img.components[0].coefs)
 
 
-def test_oom_degrades_to_dequant(monkeypatch):
-    """A device allocation failure degrades to plain host dequantization
-    (quantsmooth.h:2551-2566); other errors propagate."""
+_OOM_ERRORS = {
+    "cuda": torch.cuda.OutOfMemoryError("CUDA out of memory."),
+    "cpu_allocator": RuntimeError(
+        "[enforce fail at alloc_cpu.cpp:127] data. DefaultCPUAllocator: "
+        "can't allocate memory: you tried to allocate 140737488355328 "
+        "bytes. Error code 12 (Cannot allocate memory)"),
+    "jax": RuntimeError("RESOURCE_EXHAUSTED: Out of memory while trying to "
+                        "allocate 1073741824 bytes."),
+}
+
+
+@pytest.mark.parametrize("error", list(_OOM_ERRORS))
+def test_oom_degrades_to_dequant(monkeypatch, error):
+    """An allocation failure -- the card's, the CPU allocator's plain
+    RuntimeError, or a JAX-style RESOURCE_EXHAUSTED -- degrades to plain
+    host dequantization (quantsmooth.h:2551-2566) on device="cpu"; other
+    errors, a kernel's build or launch failure among them, propagate."""
     img = image_from_arrays(jax_jpegio.read_coefficients(_c420()))
 
     def oom(*a, **k):
-        raise torch.cuda.OutOfMemoryError("CUDA out of memory.")
+        raise _OOM_ERRORS[error]
 
     monkeypatch.setattr(cuda_solver, "idct_pix", oom)
     res = jpegqs_tpu_torch.smooth(img, QsOptions.from_quality(3, 3), "cpu")
@@ -138,12 +152,16 @@ def test_oom_degrades_to_dequant(monkeypatch):
                 ).astype(np.int16)
         assert np.array_equal(res.coefs[ci], want), f"comp {ci}"
 
-    def other(*a, **k):
-        raise RuntimeError("something else entirely")
+    for other in (RuntimeError("something else entirely"),
+                  _build.KernelError("idct_pix: CUDA error 2 at launch"),
+                  _build.KernelError("nvcc failed (1):\nout of memory")):
+        def fail(*a, **k):
+            raise other
 
-    monkeypatch.setattr(cuda_solver, "idct_pix", other)
-    with pytest.raises(RuntimeError, match="something else"):
-        jpegqs_tpu_torch.smooth(img, QsOptions.from_quality(3, 3), "cpu")
+        monkeypatch.setattr(cuda_solver, "idct_pix", fail)
+        with pytest.raises(RuntimeError) as raised:
+            jpegqs_tpu_torch.smooth(img, QsOptions.from_quality(3, 3), "cpu")
+        assert raised.value is other
 
 
 def test_smooth_jpeg_bytes_matches_jax():

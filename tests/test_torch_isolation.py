@@ -3,8 +3,10 @@
 A fresh interpreter imports every module of jpegqs_tpu_torch and
 chip_smoke and runs the engine, the batch engine, the decode path, the
 2-D shard grid, the batch forms (dryrun_multichip), a one-rank
-torch.distributed job and the profiling utilities on the CPU; neither
-``jax`` nor ``jpegqs_tpu`` may appear in sys.modules.  No module of the
+torch.distributed job, the profiling utilities, a case of
+tools/fuzz_port.py's card path and examples/example_torch.py's import
+on the CPU; neither ``jax`` nor ``jpegqs_tpu`` may appear in
+sys.modules.  No module of the
 package names either in an import statement.
 Also checks chip_smoke's golden digests (the SHA-256 of jpegqs_tpu's
 output planes and of its decoded pixels, which the card must reproduce)
@@ -71,6 +73,21 @@ res = multihost.smooth_image_distributed(
     chip_smoke.golden_image(case), chip_smoke.golden_opts(case), ["cpu"] * 2)
 assert chip_smoke.digest(res.coefs, res.stop, res.upsampled) == \
     chip_smoke.GOLDEN[case[0]]
+# the fuzz tool's card path (its oracle is the port's own CPU run) and
+# the library example
+import importlib.util
+def load(name, rel):
+    spec = importlib.util.spec_from_file_location(name, rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+fuzz_port = load("fuzz_port", "tools/fuzz_port.py")
+case = dict(fuzz_port.sample_case(1, 0), h=32, w=48, color="ycc",
+            sampling=[2, 2], damage=None, quality=6, niter=1, flags=None,
+            grid=[1, 2], batch=2, decode=True)
+ran = fuzz_port.run_case(case, "cpu", fuzz_port.PortCpuOracle())
+assert ran.get("grid") and ran.get("batch") and ran.get("decode"), ran
+example = load("example_torch", "examples/example_torch.py")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "jpegqs_tpu"))
 print("FOREIGN", bad)
@@ -99,7 +116,8 @@ def test_no_module_imports_jax():
     runs)."""
     import ast
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "multihost_worker.py")]
+             os.path.join(REPO, "tools", "multihost_worker.py"),
+             os.path.join(REPO, "examples", "example_torch.py")]
     for d, _, names in os.walk(os.path.join(REPO, "jpegqs_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
