@@ -19,7 +19,10 @@ on any mismatch:
    launch, then the rate of separate fp32 operations the card sustains at
    1, 4 and 16 chains per thread, beside the data-sheet rate;
 5. holds every kernel bit for bit against its plain PyTorch version on the
-   card: B1/B2 at flags 0 and DIAGONALS, B3 (JOINT_YUV preamble) with the
+   card (the upsample_fdct kernel on random small geometries with and
+   without its replicate tails, and on one chroma component of 16 12 MP
+   photos back to back, the benchmark cell's batch, timed beside its byte
+   bound and its plain version): B1/B2 at flags 0 and DIAGONALS, B3 (JOINT_YUV preamble) with the
    sweep at NT 242 and 144 and without it, B4 (LOW_QUALITY preamble);
    rebalance on and off, pixels emitted or not, edge shapes (hb=1, wb=1,
    1x1, a 37x53 grid of partial CTAs), two images back to back, and for
@@ -148,6 +151,19 @@ FP32_OPS_PER_TERM = 9   # sub, max, t*t, d*t, tab*t, u*w, +, w*w, +
 FDCT_CLAMP_OPS = 16 * 44 + 64 + 64
 JOINT_PREAMBLE_OPS = 64 * 13 + FDCT_CLAMP_OPS
 LQ_PREAMBLE_OPS = 130 + 64 * (8 * 11 + 5) + FDCT_CLAMP_OPS
+# the upsample_fdct kernel per luma block, counted from csrc/solver.cu: 8
+# a pixel (luma conversion, mul, add, trunc, max, min, conversion back,
+# the centred value's conversion), 10 a chroma pixel's regression (4
+# int->float conversions, the divide, 2 clamps, mul, sub, add; hs x ws
+# luma pixels share it) and the FDCT's 16 butterflies of 44 ops, 64
+# x0.125 scalings and 64 roundf
+def upsample_fdct_ops(hs, ws):
+    return 64 * 8 + 64 // (hs * ws) * 10 + FDCT_CLAMP_OPS
+
+
+# the upsample's batch at the benchmark cell's shape: 16 of the 12 MP
+# photos back to back, one chroma component
+UPSAMPLE_BATCH = 16
 
 DEVICE = "cuda"
 # the main path's images: a 12 MP phone-camera frame (4:2:0) and the
@@ -440,13 +456,15 @@ def plain_solve_range_pix(coef, pix, image2, div, x1, qshr, flags,
 
 
 KERNELS = ("idct_pix", "solve_rebalance_pix", "solve_fused_pix",
-           "solve_rebalance", "solve_fused", "solve_range_pix")
+           "solve_rebalance", "solve_fused", "solve_range_pix",
+           "upsample_fdct_blocks")
 PLAIN = {"idct_pix": plain_idct_pix,
          "solve_rebalance_pix": plain_solve_rebalance_pix,
          "solve_fused_pix": plain_solve_fused_pix,
          "solve_rebalance": plain_solve_rebalance,
          "solve_fused": plain_solve_fused,
-         "solve_range_pix": plain_solve_range_pix}
+         "solve_range_pix": plain_solve_range_pix,
+         "upsample_fdct_blocks": planar.upsample_fdct_blocks}
 
 
 class plain_kernels:
@@ -789,11 +807,63 @@ def phase_kernels_vs_plain(torch, stats):
                             stats[key]["max_abs_err"], err)
                         n += 1
     names = ", ".join(FLAG_NAMES[f] for f, _ in FUSED_FLAG_SETS)
+    n_up = UPSAMPLE_SMALL_CASES
+    for i in range(n_up):
+        args, geom = _upsample_case(rng, i)
+        err = max_abs_err(cuda_solver.upsample_fdct_blocks(*args, *geom),
+                          planar.upsample_fdct_blocks(*args, *geom))
+        assert err == 0, f"upsample_fdct differs from plain at {geom}"
+        stats["upsample_fdct"]["max_abs_err"] = max(
+            stats["upsample_fdct"]["max_abs_err"], err)
+    log(f"upsample_fdct vs plain: {n_up} small random cases bit-identical "
+        f"(sampling 2x2, 2x1, 1x2; 1-5 chroma blocks a side, odd luma "
+        f"grids, 1-3 images, images and shards with and without either "
+        f"replicate tail; flat, two-level and noisy halos)")
     log(f"B5/B6 vs plain: {n} small cases bit-identical (B5 at flags 0 and "
         f"DIAGONALS on each body, B6 at {names}; B = 1, 13, 37, 117 and row "
         f"chunks (r0, "
         f"rows) {CHUNKS} and block slices {SLICES} of a 9x13 plane as "
         f"column-slice views; rebalance on/off; pixels emitted or not)")
+
+
+UPSAMPLE_SMALL_CASES = 90
+
+
+def _upsample_case(rng, i):
+    """A random block-form upsample: (chroma halos, image2 halos, luma
+    pixels) on the card and the geometry upsample_fdct_blocks takes after
+    them.  Sampling 2x2, 2x1, 1x2 in turn; odd luma grids; the image
+    height and width anywhere in their last two block rows / columns, so
+    either tail may run; 40% of cases a shard of a grid of up to 3 x 3;
+    halos flat (s_aa == 0), two-level 0 / 255 (clamped slopes, saturated
+    pixels), near-constant or noise."""
+    hs, ws = ((2, 2), (2, 1), (1, 2))[i % 3]
+    hb_c, wb_c = (int(v) for v in rng.integers(1, 6, 2))
+    hb_l = max(1, hb_c * hs - int(rng.integers(0, 2))) if hs == 2 else hb_c
+    wb_l = max(1, wb_c * ws - int(rng.integers(0, 2))) if ws == 2 else wb_c
+    n = int(rng.integers(1, 4))
+    R, C = (int(v) for v in rng.integers(1, 4, 2))
+    if rng.random() >= 0.4:
+        R = C = 1
+    r, c = int(rng.integers(0, R)), int(rng.integers(0, C))
+    hbt, wbt = hb_l * R, wb_l * C
+    img_h = int(rng.integers(max(1, (hbt - 2) * 8 + 1), hbt * 8 + 1))
+    img_w = int(rng.integers(max(1, (wbt - 2) * 8 + 1), wbt * 8 + 1))
+
+    def halos(shape):
+        kind = int(rng.integers(0, 4))
+        if kind == 0:
+            return np.full(shape, rng.integers(0, 256), np.int32)
+        if kind == 1:
+            return (rng.integers(0, 2, shape) * 255).astype(np.int32)
+        if kind == 2:
+            return rng.integers(100, 102, shape).astype(np.int32)
+        return rng.integers(0, 256, shape).astype(np.int32)
+
+    Bc, Bl = n * hb_c * wb_c, n * hb_l * wb_l
+    args = tuple(to_dev(halos(sh)) for sh in ((100, Bc), (100, Bc), (64, Bl)))
+    return args, (img_w, img_h, ws, hs, hb_l, wb_l, hb_c, wb_c,
+                  r * hb_l * 8, hbt, c * wb_l * 8, wbt)
 
 
 # row chunks (first row, rows) of the 9x13 plane: the first, middle and
@@ -1096,10 +1166,30 @@ def phase_full_plane(torch, img, gray, stats, card, t3_rate):
           lambda: cuda_solver.solve_fused(*a0),
           lambda: plain_solve_fused(*a0), B * (64 + 100 + 64) * 4,
           B * LQ_PREAMBLE_OPS, f"on {B} blocks (q0 pass)")
+    # the upsample of one chroma component at the benchmark cell's shape:
+    # the photo's planes UPSAMPLE_BATCH times back to back
+    chalo10 = planar.blocks_halo10(cpix.reshape(8, 8, Bc), hbc,
+                                   wbc).reshape(100, Bc)
+    nu = UPSAMPLE_BATCH
+    up = tuple(torch.cat([x] * nu, dim=1) for x in (chalo10, image2, pix))
+    geom = (img.width, img.height, 2, 2, hb, wb, hbc, wbc)
+    err = max_abs_err(cuda_solver.upsample_fdct_blocks(*up, *geom),
+                      planar.upsample_fdct_blocks(*up, *geom))
+    assert err == 0, f"upsample_fdct differs from plain on {nu} photos"
+    timed("upsample_fdct", "upsample_fdct_blocks",
+          lambda: cuda_solver.upsample_fdct_blocks(*up, *geom),
+          lambda: planar.upsample_fdct_blocks(*up, *geom),
+          nu * (B * (64 * 4 + 64 * 2) + Bc * 2 * 100 * 4),
+          nu * B * upsample_fdct_ops(2, 2),
+          f"on {nu} x {B} luma blocks (one chroma component of {nu} "
+          f"4:2:0 photos, bit-identical to plain)", plain_reps=1)
+    del up
     log(f"  bounds count {sweep_terms(0)} / {sweep_terms(DIAGONALS)} "
         f"non-zero-weight sweep terms per block and pass (NT 144 / 242) x "
         f"{FP32_OPS_PER_TERM} fp32 ops, {JOINT_PREAMBLE_OPS} fp32 ops of "
-        f"JOINT preamble + FDCT, {LQ_PREAMBLE_OPS} of LQ preamble + FDCT")
+        f"JOINT preamble + FDCT, {LQ_PREAMBLE_OPS} of LQ preamble + FDCT, "
+        f"{upsample_fdct_ops(2, 2)} a luma block of the 4:2:0 upsample + "
+        f"FDCT")
 
 
 def _check_planes(img, res, opts):
@@ -1210,7 +1300,8 @@ def expected_launches(plan):
     """One image's kernel launches, worked out from its plan: one B1 per
     component that smooths, then per pass one B3 (a component after the
     luma when JOINT_YUV reads the downsampled luma), B4 (LOW_QUALITY) or
-    B2."""
+    B2, and after it, on a component that UPSAMPLE_UV upsamples in block
+    form, one upsample_fdct."""
     want = {}
     for k, p in enumerate(plan.comps):
         if p.mode != "smooth":
@@ -1221,6 +1312,8 @@ def expected_launches(plan):
                else "solve_rebalance_pix")
         want["idct_pix"] = want.get("idct_pix", 0) + 1
         want[key] = want.get(key, 0) + p.niter
+        if k > 0 and plan.image1_live and plan.ds_blocks:
+            want["upsample_fdct"] = want.get("upsample_fdct", 0) + 1
     return want
 
 
@@ -1843,7 +1936,8 @@ def expected_sharded(img, opts, n, overlap):
     with real blocks, on a grid of one column one B7 launch, or three
     (interior rows, first row, last row) under JPEGQS_OVERLAP when it has
     three real rows or more, on a grid of several columns one launch per
-    real row."""
+    real row; under UPSAMPLE_UV (sampling factors above 1x1) one
+    upsample_fdct per chroma component and shard."""
     flags, comps = opts.flags, img.components
     r, c = grid = engine.choose_grid(img, opts, n)
     ycbcr = engine._need_downsample(img, flags)
@@ -1866,6 +1960,10 @@ def expected_sharded(img, opts, n, overlap):
             else:
                 per = 3 if overlap and real >= 3 else int(real > 0)
             want[key] = want.get(key, 0) + per * opts.niter
+    y = comps[0]
+    if (ycbcr and flags & UPSAMPLE_UV
+            and (y.h_samp_factor, y.v_samp_factor) != (1, 1)):
+        want["upsample_fdct"] = 2 * r * c
     return want, grid
 
 
@@ -2628,6 +2726,7 @@ REPLACES = {
     "solve_range_pix": "jpegqs_tpu/ops/pallas_solver.py:647",
     "solve_range_pix_joint": "jpegqs_tpu/ops/pallas_solver.py:647",
     "solve_range_pix_lq": "jpegqs_tpu/ops/pallas_solver.py:647",
+    "upsample_fdct": "none: XLA ops at jpegqs_tpu/engine.py:430-437",
     "peak": "tools/vpu_peak.py:50",
     "canary_muladd": "tests/test_canary.py:47",
     "canary_fold": "tests/test_canary.py:73",
@@ -2681,9 +2780,11 @@ def main() -> int:
                                      "solve_rebalance_pix": 3}),
         ("gray_2mp", gray, 3, 1, {"idct_pix": 1, "solve_rebalance_pix": 1}),
         ("color_12mp", color, 6, 3, {"idct_pix": 3, "solve_rebalance_pix": 3,
-                                     "solve_fused_pix_joint": 6}),
+                                     "solve_fused_pix_joint": 6,
+                                     "upsample_fdct": 2}),
         ("color_12mp", color, 2, 3, {"idct_pix": 3, "solve_fused_pix_lq": 3,
-                                     "solve_fused_pix_joint": 6}),
+                                     "solve_fused_pix_joint": 6,
+                                     "upsample_fdct": 2}),
         ("gray_2mp", gray, 0, 3, {"idct_pix": 1, "solve_fused_pix_lq": 3}),
     ), card)
     stamp("main path")

@@ -14,6 +14,8 @@
 // neighbouring words.  One thread owns one 8x8 block for the whole pass,
 // except in the LOW_QUALITY passes (B4 and its B6/B7 forms) and B5's lane
 // body, where 8 lanes of a warp share a block.
+// The upsample_fdct kernel writes its output block-major, int16[B, 64], the
+// layout the host copies.
 // The solver tables are f32[64, pitch]: a row holds the NT weights of one
 // coefficient, padded with zeros to a multiple of four (pitch), so a row
 // reads as float4.
@@ -1549,6 +1551,255 @@ solve_joint_thread_kernel(const PassArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// UPSAMPLE_UV in block form, sampling factors HS x WS of 2 x 2, 2 x 1 or
+// 1 x 2: one chroma component upsampled to the luma grid by the JOINT
+// regression on the downsampled luma, centred, float FDCT, roundf, the C
+// cast and int16 (planar.upsample_fdct_blocks: upsample_chroma_blocks, then
+// fdct_round_i16; quantsmooth.h:1851-2394, 2691-2752).
+// Replaces no TPU kernel: the JAX package runs this tail as XLA ops
+// (jpegqs_tpu/engine.py's block-form branch: planar.upsample_chroma_blocks,
+// fdct_float_p, roundf).
+// Bound on this card: bytes -- per luma block its 64 pixels in (256 B), its
+// share of the two halos (800 B a chroma block, which HS x WS luma blocks
+// share) and 128 B of int16 out, against ~24 fp32 operations a pixel.
+// Design: read each input once, keep every intermediate on the chip, write
+// int16 once.  One thread per luma block, 128 a CTA.  The thread works out
+// the regression of each of its 64 / (HS x WS) chroma pixels from 3x3
+// windows that slide down the halo columns (neighbouring threads read the
+// same chroma block: L1 hits), applies it to its HS x WS luma pixels at
+// once, and runs the FDCT's column pass on each luma column as soon as it
+// is complete, so the registers hold the 64 column outputs and one chroma
+// column's pixels, not the whole block twice (upsample_columns).  The int16
+// block goes through shared memory, rows padded to 33 words, so that a CTA
+// stores its output as contiguous 16-byte chunks instead of a warp writing
+// 128-byte strides.  A block that may hold a pixel of a replicate tail works
+// each pixel out from its source pixel alone (upsample_pixel), staged as
+// bytes in the thread's own shared words: nothing waits on another block.
+// Every operation is the plain version's, in its order: the window sums are
+// exact integers below 2^24 (as in joint_fblock), the divide is IEEE and
+// guarded by s_aa != 0, and every other product and sum is rounded once.
+// ---------------------------------------------------------------------------
+struct UpsampleArgs {
+  const int* chroma;  // [100, ld_c] the component's 10x10 halos
+  const int* image2;  // [100, ld_c] the downsampled luma's 10x10 halos
+  const int* luma;    // [64, ld_l] the luma pixels
+  short* out;         // [nblocks, 64] the luma-size coefficients
+  int nblocks, ld_l, ld_c;  // n images of bl_img luma / bc_img chroma
+                            // blocks; the luma's and the halos' row strides
+                            // (element offsets fit in 32 bits, which
+                            // spares the registers 64-bit ones spilled:
+                            // PERF.md, Findings)
+  int wb_l, bl_img, wb_c, bc_img;
+  int row0, col0;     // the shard's first global pixel row and column
+  // Replicate tails, in global pixels (INT32_MAX: none): a row at or
+  // below bottom_from copies local row src_row; then a column at or right
+  // of right_from, in a row above right_rows, copies local column src_col.
+  int bottom_from, src_row, right_from, right_rows, src_col;
+};
+
+constexpr int kUpPitch = 33;  // words of a thread's staged int16 block
+
+// The regression of a chroma pixel on the downsampled luma from the 3x3
+// windows wa (luma) and wc (chroma) around it (planar._regression_f,
+// quantsmooth.h:893-912, 2367): scale = s_ab / s_aa clamped to +-16 and
+// offset = chroma - luma_ds * scale + 0.5.
+__device__ __forceinline__ void upsample_regression(const int (&wa)[3][3],
+                                                    const int (&wc)[3][3],
+                                                    float& scale,
+                                                    float& offset) {
+  int sa = 0, sb = 0, saa = 0, sab = 0;
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const int w = (dy == 1 ? 2 : 1) * (dx == 1 ? 2 : 1);
+      sa += w * wa[dy][dx];
+      sb += w * wc[dy][dx];
+      saa += w * wa[dy][dx] * wa[dy][dx];
+      sab += w * wa[dy][dx] * wc[dy][dx];
+    }
+  }
+  const int s_aa = saa * 16 - sa * sa;
+  const int s_ab = sab * 16 - sa * sb;
+  const float s = s_aa != 0 ? __fdiv_rn((float)s_ab, (float)s_aa) : 0.0f;
+  scale = fminf(fmaxf(s, -16.0f), 16.0f);
+  offset = __fadd_rn(
+      __fsub_rn((float)wc[1][1], __fmul_rn((float)wa[1][1], scale)), 0.5f);
+}
+
+// One upsampled pixel from its luma pixel (quantsmooth.h:2379-2388):
+// trunc(luma * scale + offset) clamped to 0..255.
+__device__ __forceinline__ int upsample_apply(int luma, float scale,
+                                              float offset) {
+  const float v = __fadd_rn(__fmul_rn((float)luma, scale), offset);
+  return (int)fminf(fmaxf(truncf(v), 0.0f), 255.0f);
+}
+
+// The upsampled pixel (y, x) of image img, in the local pixels of its luma
+// grid, from its own chroma pixel's windows and luma pixel: the tail path.
+template <int HS, int WS>
+__device__ int upsample_pixel(const UpsampleArgs& a, int img, int y, int x) {
+  const int S = a.ld_c;
+  const int cy = y / HS, cx = x / WS;
+  const int cb = img * a.bc_img + (cy >> 3) * a.wb_c + (cx >> 3);
+  const int k0 = (cy & 7) * 10 + (cx & 7);
+  int wa[3][3], wc[3][3];
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const int i = (k0 + dy * 10 + dx) * S + cb;
+      wa[dy][dx] = __ldg(a.image2 + i);
+      wc[dy][dx] = __ldg(a.chroma + i);
+    }
+  }
+  float scale, offset;
+  upsample_regression(wa, wc, scale, offset);
+  const int lb = img * a.bl_img + (y >> 3) * a.wb_l + (x >> 3);
+  const int k = (y & 7) * 8 + (x & 7);
+  return upsample_apply(__ldg(a.luma + (k * a.ld_l + lb)), scale, offset);
+}
+
+// The float FDCT's column pass (fdct_clamp's order) of luma block b
+// (image img, block row by, column bx) with no tail pixel, into ws.  Chroma
+// column by chroma column: each chroma pixel's regression once, from 3x3
+// windows sliding down its halo columns, applied to its HS x WS luma
+// pixels; once a chroma column's pixels are all in, its WS luma columns
+// go through fdct_pass, so no more than 8 x WS centred pixels are live
+// (the block's 64 at once spilled: PERF.md, Findings).
+template <int HS, int WS>
+__device__ __forceinline__ void upsample_columns(const UpsampleArgs& a,
+                                                 int img, int by, int bx,
+                                                 int b, float (&ws)[64]) {
+  constexpr int RH = 8 / HS, RW = 8 / WS;
+  const int S = a.ld_c;
+  const int cb = img * a.bc_img + (by / HS) * a.wb_c + bx / WS;
+  const int* __restrict__ g = a.image2 + cb;
+  const int* __restrict__ h = a.chroma + cb;
+  // the block's first chroma pixel in its chroma block
+  const int k0 = (by % HS) * RH * 10 + (bx % WS) * RW;
+#pragma unroll
+  for (int c = 0; c < RW; ++c) {
+    int wa[3][3], wc[3][3];
+#pragma unroll
+    for (int dy = 1; dy < 3; ++dy) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const int i = (k0 + (dy - 1) * 10 + c + dx) * S;
+        wa[dy][dx] = __ldg(g + i);
+        wc[dy][dx] = __ldg(h + i);
+      }
+    }
+    float fb[8 * WS];  // the centred pixels of luma columns c*WS ..
+#pragma unroll
+    for (int r = 0; r < RH; ++r) {
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const int i = (k0 + (r + 2) * 10 + c + dx) * S;
+        wa[0][dx] = wa[1][dx];
+        wa[1][dx] = wa[2][dx];
+        wa[2][dx] = __ldg(g + i);
+        wc[0][dx] = wc[1][dx];
+        wc[1][dx] = wc[2][dx];
+        wc[2][dx] = __ldg(h + i);
+      }
+      float scale, offset;
+      upsample_regression(wa, wc, scale, offset);
+#pragma unroll
+      for (int dy = 0; dy < HS; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < WS; ++dx) {
+          const int k = (r * HS + dy) * 8 + c * WS + dx;
+          const int v = upsample_apply(
+              __ldg(a.luma + (k * a.ld_l + b)), scale, offset);
+          fb[(r * HS + dy) * WS + dx] = (float)(v - 128);  // - CENTERJSAMPLE
+        }
+      }
+    }
+#pragma unroll
+    for (int dx = 0; dx < WS; ++dx) {
+      float x[8], o[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) x[r] = fb[r * WS + dx];
+      fdct_pass(x, o);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) ws[u * 8 + c * WS + dx] = o[u];
+    }
+  }
+}
+
+template <int HS, int WS>
+__global__ void __launch_bounds__(kThreads, 4)
+upsample_fdct_kernel(const UpsampleArgs a) {
+  __shared__ u32 staged[kThreads * kUpPitch];  // 16,896 B: int16 out
+  __shared__ u32 tail[16 * kThreads];  // 8,192 B: tail pixels, as bytes
+  const int t = threadIdx.x;
+  const int b = blockIdx.x * kThreads + t;
+  if (b < a.nblocks) {
+    const int img = b / a.bl_img, loc = b - img * a.bl_img;
+    const int by = loc / a.wb_l, bx = loc - by * a.wb_l;
+    // the float FDCT (planar.fdct_round_i16; fdct_clamp's order): the
+    // column pass into ws, then the row pass, roundf, the C cast and the
+    // int16 wrap, two coefficients a staged word
+    float ws[64];
+    if (a.row0 + by * 8 + 7 >= a.bottom_from ||
+        a.col0 + bx * 8 + 7 >= a.right_from) {
+      // byte k of the thread's pixels in word (k / 4) * kThreads + t
+      unsigned char* px = reinterpret_cast<unsigned char*>(tail + t);
+#pragma unroll 1
+      for (int k = 0; k < 64; ++k) {
+        const int y = by * 8 + (k >> 3), x = bx * 8 + (k & 7);
+        const int ys = a.row0 + y >= a.bottom_from ? a.src_row : y;
+        const int xs = a.row0 + ys < a.right_rows &&
+                               a.col0 + x >= a.right_from
+                           ? a.src_col
+                           : x;
+        px[(k >> 2) * kThreads * 4 + (k & 3)] =
+            (unsigned char)upsample_pixel<HS, WS>(a, img, ys, xs);
+      }
+#pragma unroll
+      for (int col = 0; col < 8; ++col) {
+        float x[8], o[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int k = r * 8 + col;
+          x[r] = (float)((int)px[(k >> 2) * kThreads * 4 + (k & 3)] - 128);
+        }
+        fdct_pass(x, o);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) ws[u * 8 + col] = o[u];
+      }
+    } else {
+      upsample_columns<HS, WS>(a, img, by, bx, b, ws);
+    }
+    u32* row = staged + t * kUpPitch;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float x[8], o[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[k] = ws[u * 8 + k];
+      fdct_pass(x, o);
+#pragma unroll
+      for (int k = 0; k < 8; k += 2) {
+        const int v0 = c_cast(roundf(__fmul_rn(o[k], 0.125f)));
+        const int v1 = c_cast(roundf(__fmul_rn(o[k + 1], 0.125f)));
+        row[u * 4 + k / 2] =
+            (u32)(unsigned short)v0 | ((u32)(unsigned short)v1 << 16);
+      }
+    }
+  }
+  __syncthreads();
+  // the CTA's blocks are contiguous in out: 8 chunks of 16 bytes a block
+  const int first = blockIdx.x * kThreads;
+  const int chunks = min(kThreads, a.nblocks - first) * 8;
+  uint4* out = reinterpret_cast<uint4*>(a.out) + (size_t)first * 8;
+  for (int q = t; q < chunks; q += kThreads) {
+    const u32* s = staged + (q >> 3) * kUpPitch + (q & 7) * 4;
+    out[q] = make_uint4(s[0], s[1], s[2], s[3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // T3: the card's fp32 peak probe.
 // Replaces tools/vpu_peak.py peak_kernel: NCH independent chains
 // a = a * k + b per thread, n_steps deep, the multiply and the add separate
@@ -1723,6 +1974,48 @@ PassArgs given_pass(const int* coef_in, const int* nbhd, const int* image2,
                   -1,      -1,        -1,      -1,      do_rebalance};
 }
 
+// The descriptor of an upsample: nblocks luma blocks, n images of hb_l x
+// wb_l, their chroma hb_c x wb_c; the replicate tails worked out as
+// planar.upsample_chroma_blocks does, for a shard whose first global pixel
+// row and column are row0 and col0 in an image of hb_l_total x wb_l_total
+// luma blocks.  False when the geometry is not one the kernel takes.
+bool upsample_args(const int* chroma, const int* image2, const int* luma,
+                   short* out, int nblocks, int ld_luma, int hb_l, int wb_l,
+                   int hb_c,
+                   int wb_c, int img_w, int img_h, int ws, int hs, int row0,
+                   int hb_l_total, int col0, int wb_l_total,
+                   UpsampleArgs* a) {
+  if (hb_l < 1 || wb_l < 1 || hb_c < 1 || wb_c < 1 || img_w < 1 ||
+      img_h < 1 || row0 < 0 || col0 < 0 || hb_c * hs < hb_l ||
+      ld_luma < nblocks || ld_luma > INT32_MAX / 64 ||
+      wb_c * ws < wb_l || nblocks < 0 || nblocks % (hb_l * wb_l) != 0 ||
+      !((ws == 2 && hs == 2) || (ws == 2 && hs == 1) || (ws == 1 && hs == 2)))
+    return false;
+  const int n = nblocks / (hb_l * wb_l);
+  if ((long long)n * hb_c * wb_c > INT32_MAX / 100) return false;
+  const int w1 = (img_w + ws - 1) / ws, h1 = (img_h + hs - 1) / hs;
+  const int hh = hb_l_total * 8, ww = wb_l_total * 8;
+  *a = UpsampleArgs{chroma, image2, luma, out, nblocks, ld_luma,
+                    n * hb_c * wb_c,
+                    wb_l, hb_l * wb_l, wb_c, hb_c * wb_c, row0, col0,
+                    INT32_MAX, 0, INT32_MAX, 0, 0};
+  if (w1 * ws < ww) {
+    // the first min(8, h1) * hs rows only (quantsmooth.h:1861, 2390-2393)
+    const int sc = w1 * ws - 1;
+    const int lbc = min(max(sc / 8 - col0 / 8, 0), wb_l - 1);
+    a->right_from = w1 * ws;
+    a->right_rows = min(min(8, h1) * hs, min(h1 * hs, hh));
+    a->src_col = lbc * 8 + sc % 8;
+  }
+  if (h1 * hs < hh) {  // quantsmooth.h:2729-2730
+    const int sr = h1 * hs - 1;
+    const int lb = min(max(sr / 8 - row0 / 8, 0), hb_l - 1);
+    a->bottom_from = h1 * hs;
+    a->src_row = lb * 8 + sr % 8;
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1843,6 +2136,35 @@ int jq_solve_range_pix(const int* coef_in, const int* pix_in,
                                 right_col, do_rebalance);
     return (int)launch_pass<false>(a, pre, nt, true, false,
                                    (cudaStream_t)stream);
+  }
+  return (int)cudaGetLastError();
+}
+
+// UPSAMPLE_UV of one chroma component in block form: chroma and image2
+// int32[100, n * hb_c * wb_c] halos, luma int32[64, nblocks] pixels in rows
+// ld_luma apart (a column-slice view of a larger plane, or nblocks), out
+// int16[nblocks, 64], nblocks = n * hb_l * wb_l; (hs, ws) is (2, 2), (2, 1)
+// or (1, 2).  row0 / col0 and hb_l_total / wb_l_total as
+// planar.upsample_chroma_blocks takes them (0 and hb_l / wb_l unsharded).
+int jq_upsample_fdct(const int* chroma, const int* image2, const int* luma,
+                     short* out, int nblocks, int ld_luma, int hb_l,
+                     int wb_l, int hb_c, int wb_c, int img_w, int img_h,
+                     int ws, int hs, int row0, int hb_l_total, int col0,
+                     int wb_l_total, void* stream) {
+  UpsampleArgs a;
+  if (!upsample_args(chroma, image2, luma, out, nblocks, ld_luma, hb_l, wb_l,
+                     hb_c,
+                     wb_c, img_w, img_h, ws, hs, row0, hb_l_total, col0,
+                     wb_l_total, &a))
+    return (int)cudaErrorInvalidValue;
+  if (nblocks > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (hs == 2 && ws == 2)
+      upsample_fdct_kernel<2, 2><<<blocks_for(nblocks), kThreads, 0, s>>>(a);
+    else if (hs == 2)
+      upsample_fdct_kernel<2, 1><<<blocks_for(nblocks), kThreads, 0, s>>>(a);
+    else
+      upsample_fdct_kernel<1, 2><<<blocks_for(nblocks), kThreads, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

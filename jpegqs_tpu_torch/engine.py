@@ -19,7 +19,9 @@ card (the JAX package runs them as XLA ops): after the luma, the
 downsampled luma halos that JOINT_YUV reads (image2) and, for
 UPSAMPLE_UV, the luma pixels (image1); after each chroma component its
 upsampled luma-size coefficients.  Sampling factors up to 2 stay in
-block form; larger ones (4:1:1, 4x2) go through padded planes.
+block form, where the upsample with its FDCT is one kernel,
+``upsample_fdct_blocks``; larger ones (4:1:1, 4x2) go through padded
+planes.
 
 With a progress callback (``opts.progress``) the engine runs the
 reference's progress path instead (_smooth_percomp): per component and
@@ -60,15 +62,13 @@ from .options import (JOINT_YUV, UPSAMPLE_UV, LOW_QUALITY, NO_REBALANCE,
                       NO_REBALANCE_UV, ITER_MAX, QsOptions)
 from .ops import cuda_solver, planar
 from .ops._build import KernelError
-from .ops.dct import fdct_float
 from .ops.plane import downsample_plane
-from .ops.quant import make_quant_tables, roundf, c_f32_to_i32
+from .ops.quant import make_quant_tables
 from .ops.upsample import upsample_chroma
 
 I32 = torch.int32
 I16 = torch.int16
 F32 = torch.float32
-CENTERJSAMPLE = 128
 
 
 class SmoothResult:
@@ -304,30 +304,21 @@ def download(tensors):
     return fetch
 
 
-def fdct_round_i16(fblocks, hb, wb):
-    """Luma-size coefficients of upsampled chroma: float FDCT of the
-    centred blocks f32[8, 8, B], roundf, C cast, int16 [hb, wb, 64]
-    (reference: quantsmooth.h:2732-2750)."""
-    c = c_f32_to_i32(roundf(fdct_float(fblocks).reshape(64, hb * wb)))
-    # contiguous on the device: the host copy is then one plain memcpy
-    return c.to(I16).T.contiguous().reshape(hb, wb, 64)
-
-
 def _upsample_fdct(pix, image2, image1, plan: ImagePlan, n=1):
     """UPSAMPLE_UV of one chroma component of n images: its final pixels,
     the downsampled luma (image2) and the luma pixels (image1) -> int16
     [n, hb_l, wb_l, 64] (engine._image_smooth_impl's image1 branch; the
-    vmapped one of batch._image_batch_impl).  The plane form (sampling
-    factors above 2) takes one image."""
+    vmapped one of batch._image_batch_impl).  In block form one kernel
+    (cuda_solver.upsample_fdct_blocks) after the chroma halos; the plane
+    form (sampling factors above 2) takes one image."""
     hbl, wbl = plan.comps[0].hb, plan.comps[0].wb
     hbc, wbc = plan.comps[1].hb, plan.comps[1].wb
     if plan.ds_blocks:
-        up = planar.upsample_chroma_blocks(
-            planar.blocks_halo10(pix.reshape(8, 8, -1), hbc, wbc),
-            image2.reshape(10, 10, -1), image1.reshape(8, 8, -1),
-            plan.img_w, plan.img_h, plan.ws, plan.hs, hbl, wbl, hbc, wbc)
-        return fdct_round_i16((up - CENTERJSAMPLE).to(F32), n * hbl,
-                              wbl).reshape(n, hbl, wbl, 64)
+        return cuda_solver.upsample_fdct_blocks(
+            planar.blocks_halo10(pix.reshape(8, 8, -1), hbc,
+                                 wbc).reshape(100, -1),
+            image2, image1, plan.img_w, plan.img_h, plan.ws, plan.hs, hbl,
+            wbl, hbc, wbc).reshape(n, hbl, wbl, 64)
     assert n == 1, "the plane form takes one image"
     return upsample_fdct_plane(planar.pix_to_plane(pix, hbc, wbc), image2,
                                image1, plan.img_w, plan.img_h, plan.ws,
@@ -342,9 +333,9 @@ def upsample_fdct_plane(padded_chroma, image2, image1, img_w, img_h, ws, hs,
     (engine._upsample_fdct_body; reference: quantsmooth.h:2732-2750)."""
     mem = upsample_chroma(padded_chroma, image2, image1, img_w, img_h, ws,
                           hs, hb_l, wb_l)
-    fb = planar.plane_to_fblocks_p((mem - CENTERJSAMPLE).to(F32), hb_l,
-                                   wb_l)
-    return fdct_round_i16(fb, hb_l, wb_l)
+    fb = planar.plane_to_fblocks_p((mem - planar.CENTERJSAMPLE).to(F32),
+                                   hb_l, wb_l)
+    return planar.fdct_round_i16(fb, hb_l, wb_l)
 
 
 def _luma_products(pix, plan: ImagePlan):

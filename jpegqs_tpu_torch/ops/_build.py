@@ -46,6 +46,8 @@ _SIGNATURES = {
     "jq_solve_range_pix": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P],
+    "jq_upsample_fdct": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _P],
     "jq_peak": [_P, _P, _I, _I, _I, _P],
     "jq_canary_muladd": [_P, _P, _P, _P, _I, _P],
     "jq_canary_fold": [_P, _P, _I, _I, _P],

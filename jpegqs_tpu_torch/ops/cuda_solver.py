@@ -21,6 +21,10 @@ The kernels of csrc/solver.cu:
   of a shard's ghost-extended grid, with the row and column edges given by
   the caller, into a range of a whole-size output: the sharded resident
   loop's pass on a row or a row x column grid (parallel/sharded.py);
+- ``upsample_fdct_blocks``: UPSAMPLE_UV of one chroma component in block
+  form (sampling factors up to 2) with its float FDCT, roundf and int16,
+  the colour paths' last step; it replaces no TPU kernel (the JAX package
+  runs it as XLA ops);
 - ``peak_chains`` (T3): the card's fp32 peak probe, on no path.
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version
@@ -47,7 +51,8 @@ LAUNCHES = {"idct_pix": 0, "solve_rebalance_pix": 0,
             "solve_rebalance": 0, "solve_rebalance_lanes": 0,
             "solve_fused_joint": 0,
             "solve_fused_lq": 0, "solve_range_pix": 0,
-            "solve_range_pix_joint": 0, "solve_range_pix_lq": 0, "peak": 0}
+            "solve_range_pix_joint": 0, "solve_range_pix_lq": 0,
+            "upsample_fdct": 0, "peak": 0}
 
 _TAB_CACHE = {}
 
@@ -434,6 +439,43 @@ def solve_range_pix(coef, pix, image2, div, x1, qshr, flags, do_rebalance,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name)
     LAUNCHES[name] += 1
+
+
+def upsample_fdct_blocks(chroma_halo, image2_halo, luma_pix, img_w, img_h,
+                         ws, hs, hb_l, wb_l, hb_c, wb_c, row0=0,
+                         hb_l_total=None, col0=0, wb_l_total=None):
+    """UPSAMPLE_UV of one chroma component of n images in block form:
+    chroma_halo and image2_halo int32[100, n*hb_c*wb_c] (the component's
+    10x10 halos and the downsampled luma's), luma_pix int32[64,
+    n*hb_l*wb_l] -> the luma-size coefficients int16[n*hb_l*wb_l, 64]
+    (planar.upsample_fdct_blocks).  (hs, ws) is (2, 2), (2, 1) or (1, 2);
+    a shard passes its first global pixel row / column ``row0`` / ``col0``
+    and the image's luma block rows / columns ``hb_l_total`` /
+    ``wb_l_total``.  luma_pix may be a column-slice view of a larger
+    plane (a shard's real blocks in its ghost-extended grid)."""
+    if _is_cpu(chroma_halo, image2_halo, luma_pix):
+        return planar.upsample_fdct_blocks(
+            chroma_halo, image2_halo, luma_pix, img_w, img_h, ws, hs, hb_l,
+            wb_l, hb_c, wb_c, row0, hb_l_total, col0, wb_l_total)
+    Bl, Bc = hb_l * wb_l, hb_c * wb_c
+    n = luma_pix.shape[-1] // max(Bl, 1)
+    _check(chroma_halo, torch.int32, (100, n * Bc), "chroma_halo")
+    _check(image2_halo, torch.int32, (100, n * Bc), "image2_halo")
+    ld_luma = _row_stride(luma_pix, 64, n * Bl, "luma_pix")
+    lib = _build.load()
+    out = torch.empty((n * Bl, 64), dtype=torch.int16,
+                      device=luma_pix.device)
+    with torch.cuda.device(luma_pix.device):
+        err = lib.jq_upsample_fdct(
+            chroma_halo.data_ptr(), image2_halo.data_ptr(),
+            luma_pix.data_ptr(), out.data_ptr(), n * Bl, ld_luma, hb_l, wb_l,
+            hb_c, wb_c, img_w, img_h, ws, hs, row0,
+            hb_l if hb_l_total is None else hb_l_total, col0,
+            wb_l if wb_l_total is None else wb_l_total,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "upsample_fdct")
+    LAUNCHES["upsample_fdct"] += 1
+    return out
 
 
 PEAK_CHAINS = (1, 4, 16)

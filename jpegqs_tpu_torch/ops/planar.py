@@ -11,9 +11,11 @@ kernels (csrc/solver.cu) and the block-wise colour glue.
 - ``solve_range_pix``: plain version of B7, the pass of B2/B3/B4 over a
   block range with the edges given (``range_halo10``), the sharded
   loop's pass;
-- the 10x10 halos, downsample and UPSAMPLE_UV in block form, which run
-  as this same eager torch on the card (the JAX package runs them as XLA
-  ops, outside any Pallas kernel).
+- ``upsample_fdct_blocks``: plain version of the upsample_fdct kernel
+  (UPSAMPLE_UV in block form with its float FDCT, roundf and int16);
+- the 10x10 halos and the downsample, which run as this same eager torch
+  on the card (the JAX package runs these and the upsample as XLA ops,
+  outside any Pallas kernel).
 
 The passes from pixels and the block-form colour glue take several
 same-shape images back to back on the block axis (the batch engine),
@@ -47,6 +49,8 @@ from .quant import (roundf, c_f32_to_i32, get_orig_coef, interval_clamp,
 
 F32 = torch.float32
 I32 = torch.int32
+I16 = torch.int16
+CENTERJSAMPLE = 128
 
 _I_SEQ = NATURAL_ORDER[63:0:-1].astype(np.int64)            # [63]
 _REFRESH_SEQ = ZIGZAG_REFRESH[_I_SEQ].astype(bool)          # [63]
@@ -556,6 +560,31 @@ def upsample_chroma_blocks(chroma_halo, luma2_halo, luma_pix, img_w, img_h,
         mask = row_g >= h1 * hs
         o5 = torch.where(mask, src_row[None, :, :, None, :], o5)
     return o5.reshape(8, 8, -1)
+
+
+def fdct_round_i16(fblocks, hb, wb):
+    """Luma-size coefficients of upsampled chroma: float FDCT of the
+    centred blocks f32[8, 8, B], roundf, C cast, int16 [hb, wb, 64]
+    (reference: quantsmooth.h:2732-2750)."""
+    c = c_f32_to_i32(roundf(fdct_float(fblocks).reshape(64, hb * wb)))
+    # contiguous on the device: the host copy is then one plain memcpy
+    return c.to(I16).T.contiguous().reshape(hb, wb, 64)
+
+
+def upsample_fdct_blocks(chroma_halo, luma2_halo, luma_pix, img_w, img_h,
+                         ws, hs, hb_l, wb_l, hb_c, wb_c, row0=0,
+                         hb_l_total=None, col0=0, wb_l_total=None):
+    """UPSAMPLE_UV of one chroma component in block form, the plain
+    version of the upsample_fdct kernel (csrc/solver.cu): the arguments of
+    upsample_chroma_blocks (the halos as [100, n*Bc] or [10, 10, n*Bc],
+    the luma pixels as [64, n*Bl] or [8, 8, n*Bl]), its pixels centred,
+    then fdct_round_i16 -> int16[n*Bl, 64]."""
+    up = upsample_chroma_blocks(
+        chroma_halo.reshape(10, 10, -1), luma2_halo.reshape(10, 10, -1),
+        luma_pix.reshape(8, 8, -1), img_w, img_h, ws, hs, hb_l, wb_l, hb_c,
+        wb_c, row0, hb_l_total, col0, wb_l_total)
+    return fdct_round_i16((up - CENTERJSAMPLE).to(F32),
+                          up.shape[-1] // wb_l, wb_l).reshape(-1, 64)
 
 
 # ---------------------------------------------------------------------------

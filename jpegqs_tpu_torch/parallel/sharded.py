@@ -59,8 +59,6 @@ from ..ops import cuda_solver, planar
 
 I32 = torch.int32
 I16 = torch.int16
-F32 = torch.float32
-CENTERJSAMPLE = 128
 
 
 def _pad_to(x, m):
@@ -821,13 +819,12 @@ def make_sharded_ycbcr_smooth(devices, *, hb_l, wb_l, hb_c, wb_c, ws, hs,
         parts = [None] * n
         for k in mine:
             r, c = shards.pos(k)
-            up = planar.upsample_chroma_blocks(
-                ch_halo[k], img2_halo[k], pix_y[k].reshape(8, 8, Bl), img_w,
-                img_h, ws, hs, hbl_loc, wbl_loc, hbc_loc, wbc_loc,
-                row0=r * hbl_loc * 8, hb_l_total=hb_l, col0=c * wbl_loc * 8,
-                wb_l_total=wb_l)
-            parts[k] = engine.fdct_round_i16((up - CENTERJSAMPLE).to(F32),
-                                             hbl_loc, wbl_loc)
+            parts[k] = cuda_solver.upsample_fdct_blocks(
+                ch_halo[k].reshape(100, Bc), img2_halo[k].reshape(100, Bc),
+                pix_y[k].reshape(64, Bl), img_w, img_h, ws, hs, hbl_loc,
+                wbl_loc, hbc_loc, wbc_loc, row0=r * hbl_loc * 8,
+                hb_l_total=hb_l, col0=c * wbl_loc * 8,
+                wb_l_total=wb_l).reshape(hbl_loc, wbl_loc, 64)
         return shards.gather_grid(parts)[:hb_l, :wb_l].contiguous()
 
     def run(coef_y, coef_cb, coef_cr, qtabs_y, qtabs_c, qtabs_cr=None):

@@ -15,6 +15,7 @@ import torch
 from jpegqs_tpu_torch import DIAGONALS, JOINT_YUV, LOW_QUALITY
 from jpegqs_tpu_torch.ops import cuda_solver, planar
 from jpegqs_tpu_torch.ops.quant import make_quant_tables
+from upsample_cases import UPSAMPLE_TAILS, upsample_tail_inputs
 
 
 @pytest.fixture
@@ -120,6 +121,11 @@ def test_launch_counts(cuda):
                                     15, (1, 2, 0, 4), out)
     cuda_solver.solve_range_pix(coef, pix, None, *tabs, 0, True, 5, 5, 5,
                                 (1, 2, 0, 4), out)  # empty range: no launch
+    halo = image2[:, :6].contiguous()                # a 2x3 chroma grid
+    cuda_solver.upsample_fdct_blocks(halo, halo, pix, 40, 32, 2, 2, 4, 5, 2,
+                                     3, 0, 4, 0, 5)
+    cuda_solver.upsample_fdct_blocks(halo.cpu(), halo.cpu(), pix.cpu(), 40,
+                                     32, 2, 2, 4, 5, 2, 3)  # plain
     cuda_solver.idct_pix(coef.cpu())                 # plain: not counted
     assert cuda_solver.LAUNCHES == {
         "idct_pix": 1, "solve_rebalance_pix": 1,
@@ -127,7 +133,71 @@ def test_launch_counts(cuda):
         "solve_rebalance": 1, "solve_rebalance_lanes": 1,
         "solve_fused_joint": 1, "solve_fused_lq": 1,
         "solve_range_pix": 1, "solve_range_pix_joint": 1,
-        "solve_range_pix_lq": 1, "peak": 1}
+        "solve_range_pix_lq": 1, "upsample_fdct": 1, "peak": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling,quality,n,launches", [
+    ((2, 2), 6, 1, 2), ((2, 2), 2, 1, 2), ((2, 1), 6, 1, 2),
+    ((1, 2), 2, 3, 2), ((2, 2), 6, 3, 2), ((2, 2), 5, 1, 0),
+    ((2, 2), 4, 1, 0), ((2, 2), 3, 1, 0), ((1, 1), 6, 1, 0),
+    ((4, 1), 6, 1, 0), (None, 6, 1, 0)])
+def test_upsample_launches_on_card(cuda, sampling, quality, n, launches):
+    """The upsample_fdct kernel runs once per chroma component where
+    UPSAMPLE_UV upsamples in block form (q6 and q2 on 4:2:0, 4:2:2,
+    4:4:0; one image or a batch) and never elsewhere: q3-q5, 4:4:4, the
+    plane form (4:1:1) and gray images; the results equal the CPU path."""
+    from jpegqs_tpu_torch import QsOptions, batch, synth
+    imgs = [synth.make_image(40, 56, color=sampling is not None, seed=s,
+                             sampling=sampling or (2, 2)) for s in range(n)]
+    opts = QsOptions.from_quality(quality, 2)
+    cuda_solver.reset_launches()
+    got = batch.smooth_image_batch(imgs, opts)
+    torch.cuda.synchronize()
+    assert cuda_solver.LAUNCHES["upsample_fdct"] == launches
+    assert got[0].upsampled is not None or not launches
+    cpu = batch.smooth_image_batch(imgs, opts, device="cpu")
+    assert all(_same_result(a, b) for a, b in zip(got, cpu))
+
+
+# beside the tails of tests/upsample_cases.py: planes of many CTAs of 128
+# luma blocks, the last one partial, odd grids and both tails
+UPSAMPLE_LARGE = [
+    (2, 2, 20, 29, 39, 57, 310, 451, 2, None),
+    (2, 1, 19, 40, 37, 40, 290, 317, 1, None),
+    (1, 2, 37, 20, 37, 40, 293, 315, 3, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", UPSAMPLE_TAILS + UPSAMPLE_LARGE)
+def test_upsample_fdct_vs_plain_on_card(cuda, case):
+    """The upsample_fdct kernel vs its plain version on the card and on
+    the CPU: sampling 2x2, 2x1 and 1x2, odd grids, both replicate tails
+    (the right one over the first rows only), 1-3 images back to back,
+    shards with row0 / col0, s_aa == 0, slopes clamped, outputs
+    saturating at 0 and 255; the luma pixels contiguous or a view."""
+    hs, ws, hb_c, wb_c, hb_l, wb_l, img_h, img_w, n, shard = case
+    row0, hb_lt, col0, wb_lt = shard or (0, None, 0, None)
+    ins = upsample_tail_inputs(hs, ws, hb_c, wb_c, hb_l, wb_l, n,
+                               sum(case[:9]))
+    geom = (img_w, img_h, ws, hs, hb_l, wb_l, hb_c, wb_c, row0, hb_lt,
+            col0, wb_lt)
+    dev = [torch.from_numpy(a).to(cuda) for a in ins]
+    cuda_solver.reset_launches()
+    got = cuda_solver.upsample_fdct_blocks(*dev, *geom)
+    assert cuda_solver.LAUNCHES["upsample_fdct"] == 1
+    assert got.dtype == torch.int16 and got.shape == (n * hb_l * wb_l, 64)
+    assert torch.equal(got, planar.upsample_fdct_blocks(*dev, *geom))
+    assert torch.equal(got.cpu(), cuda_solver.upsample_fdct_blocks(
+        *(torch.from_numpy(a) for a in ins), *geom))
+    # the luma pixels as a column-slice view of a wider plane, as a row
+    # shard's real blocks in its ghost-extended grid are
+    wide = torch.zeros((64, dev[2].shape[1] + 11), dtype=torch.int32,
+                       device=cuda)
+    wide[:, 7:-4] = dev[2]
+    assert torch.equal(got, cuda_solver.upsample_fdct_blocks(
+        dev[0], dev[1], wide[:, 7:-4], *geom))
 
 
 def _chunk_inputs(cuda, seed, joint, hb=9, wb=13):

@@ -5,7 +5,10 @@ its colour glue vs the JAX package and the NumPy spec.
 version; it is held against ``specref.quantsmooth_block_pass`` on one
 full block pass, built as tests/test_pallas.py:_fused_case builds its
 cases.  The halos, the block-wise and plane-wise downsample and
-upsample and the float FDCT are compared with ``jpegqs_tpu.ops``.
+upsample and the float FDCT are compared with ``jpegqs_tpu.ops``, and
+``cuda_solver.upsample_fdct_blocks`` (the plain version of the
+upsample_fdct kernel) with the JAX package's block-form upsample, float
+FDCT and rounding on the tails of tests/upsample_cases.py.
 Every comparison is exact (tolerance 0).  The CUDA kernels themselves
 are held against these plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
@@ -24,6 +27,7 @@ from jpegqs_tpu_torch.options import (DIAGONALS, JOINT_YUV, LOW_QUALITY,
                                       NO_REBALANCE)
 from jpegqs_tpu_torch.ops import cuda_solver, dct, planar, plane, upsample
 from jpegqs_tpu_torch.ops.quant import make_quant_tables
+from upsample_cases import UPSAMPLE_TAILS, upsample_tail_inputs
 
 torch.set_num_threads(1)
 
@@ -131,6 +135,39 @@ def test_upsample_chroma_blocks_matches(img_h, img_w, ws, hs):
         _t(np.asarray(ch_halo)), _t(np.asarray(i2_halo)), _t(luma), img_w,
         img_h, ws, hs, hb_l, wb_l, hb_c, wb_c)
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", UPSAMPLE_TAILS)
+def test_upsample_fdct_blocks_vs_jax(case):
+    """cuda_solver.upsample_fdct_blocks on CPU tensors (the plain version
+    of the upsample_fdct kernel) vs the JAX package's block-form upsample
+    followed by its float FDCT, roundf and int16, image by image."""
+    from jpegqs_tpu.ops.quant import c_f32_to_i32, roundf
+    hs, ws, hb_c, wb_c, hb_l, wb_l, img_h, img_w, n, shard = case
+    row0, hb_lt, col0, wb_lt = shard or (0, None, 0, None)
+    chroma, image2, luma = upsample_tail_inputs(hs, ws, hb_c, wb_c, hb_l,
+                                                wb_l, n, sum(case[:9]))
+    geom = (img_w, img_h, ws, hs, hb_l, wb_l, hb_c, wb_c)
+    got = cuda_solver.upsample_fdct_blocks(
+        _t(chroma), _t(image2), _t(luma), *geom, row0, hb_lt, col0,
+        wb_lt).numpy()
+    Bc, Bl = hb_c * wb_c, hb_l * wb_l
+    want, pix = [], []
+    for i in range(n):
+        c, l = slice(i * Bc, (i + 1) * Bc), slice(i * Bl, (i + 1) * Bl)
+        up = jax_planar.upsample_chroma_blocks(
+            jnp.asarray(chroma[:, c].reshape(10, 10, Bc)),
+            jnp.asarray(image2[:, c].reshape(10, 10, Bc)),
+            jnp.asarray(luma[:, l].reshape(8, 8, Bl)), *geom, row0=row0,
+            hb_l_total=hb_lt, col0=col0, wb_l_total=wb_lt)
+        fb = (up - 128).astype(jnp.float32)
+        uc = c_f32_to_i32(roundf(jax_planar.fdct_float_p(fb).reshape(64,
+                                                                    Bl)))
+        want.append(np.asarray(uc.T.astype(jnp.int16)))
+        pix.append(np.asarray(up))
+    assert np.array_equal(got, np.concatenate(want))
+    pix = np.concatenate(pix, axis=2)
+    assert pix.min() == 0 and pix.max() == 255
 
 
 @pytest.mark.parametrize("img_h,img_w,ws,hs", [(48, 72, 4, 1),
