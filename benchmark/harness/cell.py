@@ -91,12 +91,15 @@ def _reading(rec, tracer, pool, cfg) -> trace.Reading:
                "assemble": [b.t_done - b.t_assemble for b in batches]}
     if tracer.traced:
         flags = quality_to_flags(cfg["quality"])
-        ops = nbytes = 0
+        ops = nbytes = b2_ops = b2_bytes = 0
         for b in batches:
             for i in b.images:
                 o, n = roofline.image_work(pool[i], flags, cfg["niter"])
                 ops, nbytes = ops + o, nbytes + n
+                o, n = roofline.b2_work(pool[i], flags, cfg["niter"])
+                b2_ops, b2_bytes = b2_ops + o, b2_bytes + n
         r.least_s = roofline.least_seconds(ops, nbytes)
+        r.b2_least_s = roofline.least_seconds(b2_ops, b2_bytes)
     if not tracer.on_card or tracer.prof is None:
         return r
     ops_, spans = tracer.events()

@@ -40,15 +40,27 @@ def sweep_terms(flags: int) -> int:
     return int(np.count_nonzero(solver_tables(flags)[1:]))
 
 
+def _passes(niter: int) -> int:
+    return min(max(niter, 0), ITER_MAX)
+
+
+def _colour(photo) -> bool:
+    """Whether the luma feeds the chroma's JOINT_YUV preamble: a YCbCr
+    image of three or more components whose chroma is sampled 1x1."""
+    comps = photo.comps
+    return bool(photo.ycbcr and len(comps) >= 3
+                and all(c.h_samp == 1 and c.v_samp == 1
+                        for c in comps[1:3]))
+
+
 def image_work(photo, flags: int, niter: int):
     """(fp32 operations, bytes) of smoothing one image: per component
     and pass the preamble (JOINT_YUV on the chroma when the luma feeds
     it, else LOW_QUALITY under that flag) and the sweep (unless
     LOW_QUALITY)."""
     comps = photo.comps
-    niter = min(max(niter, 0), ITER_MAX)
-    colour = (photo.ycbcr and len(comps) >= 3
-              and all(c.h_samp == 1 and c.v_samp == 1 for c in comps[1:3]))
+    niter = _passes(niter)
+    colour = _colour(photo)
     joint = colour and bool(flags & JOINT_YUV)
     sweep = 0 if flags & LOW_QUALITY else sweep_terms(flags)
     ops = nbytes = 0
@@ -66,6 +78,23 @@ def image_work(photo, flags: int, niter: int):
     if colour and flags & UPSAMPLE_UV and (y.h_samp, y.v_samp) != (1, 1):
         nbytes += 2 * y.hb * y.wb * 64 * 2   # the upsampled Cb and Cr
     return ops, nbytes
+
+
+def b2_work(photo, flags: int, niter: int):
+    """(fp32 operations, bytes) of B2's own share of smoothing one image,
+    the passes of ``solve_borders_kernel``: the sweep of every component
+    that it solves, which is none under LOW_QUALITY (B4 solves them), the
+    luma alone where the JOINT_YUV preamble takes the chroma to B3, and
+    else every component.  Bytes as ``image_work`` counts them: each
+    solved plane's coefficients read once and written once."""
+    if flags & LOW_QUALITY:
+        return 0, 0
+    comps = photo.comps
+    if _colour(photo) and flags & JOINT_YUV:
+        comps = comps[:1]
+    blocks = sum(c.hb * c.wb for c in comps)
+    return (_passes(niter) * blocks * sweep_terms(flags) * FP32_OPS_PER_TERM,
+            2 * blocks * 64 * 2)
 
 
 def least_seconds(ops: float, nbytes: float) -> float:

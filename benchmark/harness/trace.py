@@ -33,7 +33,7 @@ class Reading:
     clock; ``busy_s`` the seconds with any operation on the card,
     ``compute_s`` those with one that is not a copy between host and
     card; ``least_s`` the roofline's least time of the traced batches'
-    work."""
+    work, ``b2_least_s`` that of B2's own share of it."""
     batches: int = 0
     images: int = 0
     spans: dict = field(default_factory=dict)
@@ -42,6 +42,7 @@ class Reading:
     busy_s: float = 0.0
     compute_s: float = 0.0
     least_s: float = 0.0
+    b2_least_s: float = 0.0
     breakdown: dict = None
 
     def device_s(self, kind: str) -> float:

@@ -17,6 +17,7 @@ from benchmark.harness import cell, roofline, spec, trace
 from benchmark.reference import tables
 
 BENCH = spec.load_benchmark()
+CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
 def test_every_cell_finds_its_files():
@@ -36,14 +37,22 @@ def test_every_cell_finds_its_files():
         f"benchmark/configs/{c['name']}.json" for c in BENCH["configs"]]
 
 
-def test_metrics_of_a_cell():
-    wl = "photo12mp-q6.batch16"
+@pytest.mark.parametrize("wl", CELLS)
+def test_metrics_of_a_cell(wl):
+    """Each cell reports both end-to-end metrics, the roofline of all
+    kernels and the idle share; each per-layer metric it reports moves
+    one of them; a metric with a ``workloads`` key is only in the cells
+    it lists, one without it in every cell."""
     e2e = [m["name"] for m in spec.metrics_of(BENCH, wl, "end_to_end")]
     assert e2e == ["card_compute_mp_s", "setup_s"]
-    layer = [m["name"] for m in spec.metrics_of(BENCH, wl, "per_layer")]
-    assert "kernels_roofline" in layer and "device.idle_pct" in layer
+    layer = spec.metrics_of(BENCH, wl, "per_layer")
+    names = [m["name"] for m in layer]
+    assert "kernels_roofline" in names and "device.idle_pct" in names
+    assert {m["moves"] for m in layer} <= set(e2e)
     assert spec.metrics_of({"per_layer": [{"name": "x", "workloads": [
         "other"]}]}, wl, "per_layer") == []
+    assert spec.metrics_of({"per_layer": [{"name": "x"}]}, wl,
+                           "per_layer") == [{"name": "x"}]
 
 
 def _photo(w, h, sampling):
@@ -103,6 +112,39 @@ def test_roofline_low_quality():
         == (nl + 2 * nc) * 6914
 
 
+def test_b2_work_hand_counts():
+    """B2's own share: at q3 the sweep of all three planes (7,648 terms a
+    block, the kernel table's NT 144 bound 0.3853 ms on the luma plane);
+    at q6 the luma alone, the chroma going to B3 (13,308 terms, 0.6704
+    ms); at q0 nothing, B4 solving every plane."""
+    photo = _photo(4000, 3000, (2, 2))
+    luma, chroma = 187_500, 47_000
+    ms = lambda ops: ops / roofline.PEAK_FP32_OPS_PER_S * 1e3
+    assert round(ms(luma * 7648 * 9), 4) == 0.3853
+    ops3, bytes3 = roofline.b2_work(photo, tables.quality_to_flags(3), 3)
+    assert ops3 == 3 * (luma + 2 * chroma) * 7648 * 9
+    assert bytes3 == (luma + 2 * chroma) * 64 * 2 * 2
+    # the least time is the operations', as image_work's is at q3
+    assert roofline.least_seconds(ops3, bytes3) == pytest.approx(
+        ms(ops3) / 1e3)
+    assert (ops3, bytes3) == roofline.image_work(
+        photo, tables.quality_to_flags(3), 3)
+    ops6, bytes6 = roofline.b2_work(photo, tables.quality_to_flags(6), 1)
+    assert (ops6, bytes6) == (luma * 13308 * 9, luma * 64 * 2 * 2)
+    assert round(ms(ops6), 4) == 0.6704
+    assert roofline.b2_work(photo, tables.quality_to_flags(0), 3) == (0, 0)
+    # gray, or colour whose chroma is not at 1x1: B2 solves every plane
+    gray = types.SimpleNamespace(width=64, height=48, ycbcr=False,
+                                 comps=photo.comps[:1])
+    assert roofline.b2_work(gray, tables.quality_to_flags(6), 2)[0] == \
+        2 * luma * 13308 * 9
+    odd = types.SimpleNamespace(width=64, height=48, ycbcr=True, comps=[
+        photo.comps[0], photo.comps[1],
+        types.SimpleNamespace(h_samp=2, v_samp=1, hb=10, wb=10)])
+    assert roofline.b2_work(odd, tables.quality_to_flags(6), 1)[0] == \
+        (luma + chroma + 100) * 13308 * 9
+
+
 def test_solver_tables_frozen_copy():
     """The benchmark's own solver tables equal the program's."""
     from jpegqs_tpu_torch.specref import make_solver_tables
@@ -145,18 +187,78 @@ def test_readers():
     loop = LoopRecord(t0=0.0, t_end=1.0)
     loop.done = [Batch(0, [0, 1], 0.0, 0.0, 0.0, 0.25)]
     ctx = cell.RunContext(loop=loop, image_mp=12.0, setup_s=9.5, reading=r)
-    got = {m["name"]: spec.metric_reader(m["name"])(ctx)
-           for m in BENCH["per_layer"]}
-    assert got == pytest.approx({
+    want = {
         "batch.throughput_mp_s": 24.0, "batch.dispatch_ms": 2.0, "host.assemble_ms": 15.0,
         "glue.device_ms": 1.5, "glue.launches": 1.0,
         "kernels.device_ms": 2.5, "kernels_roofline": 25.0,
-        "device.idle_pct": 40.0})
+        "device.idle_pct": 40.0}
+    got = {name: spec.metric_reader(name)(ctx) for name in want}
+    assert got == pytest.approx(want)
+    # every reader of BENCHMARK.json reads this context: a number or None
+    for m in BENCH["per_layer"]:
+        v = spec.metric_reader(m["name"])(ctx)
+        assert v is None or isinstance(v, float), m["name"]
     # a reading with nothing on the card: the device metrics stay out
     empty = cell.RunContext(None, 12.0, 1.0, trace.Reading(batches=2))
     for name in ("glue.device_ms", "glue.launches", "kernels.device_ms",
                  "kernels_roofline", "device.idle_pct"):
         assert spec.metric_reader(name)(empty) is None
+
+
+def test_the_b2_roofline_reader():
+    """B2's least time over the device time of its own launches alone:
+    B1, B3, ATen's kernels and the copies beside them are not B2's."""
+    read = spec.metric_reader("kernels.b2_roofline")
+    assert read(cell.RunContext(None, 12.0, 1.0)) is None
+    ms = 1_000_000
+    r = trace.Reading(batches=1, images=2, least_s=0.004, b2_least_s=0.003)
+    r.device_ops = [
+        ("Memcpy HtoD (Pinned -> Device)", "copy", 0, 1 * ms),
+        ("void at::native::elementwise_kernel<128, 2>", "aten", 1 * ms,
+         2 * ms),
+        ("void (anonymous namespace)::idct_pix_kernel(float const*)",
+         "kernel", 2 * ms, 3 * ms),
+        ("void (anonymous namespace)::solve_borders_kernel<144, false>"
+         "(PassArgs)", "kernel", 3 * ms, 7 * ms),
+        ("void (anonymous namespace)::solve_joint_kernel<242, false>"
+         "(PassArgs)", "kernel", 7 * ms, 9 * ms),
+        ("void (anonymous namespace)::solve_borders_kernel<144, false>"
+         "(PassArgs)", "kernel", 9 * ms, 11 * ms),
+        ("Memcpy DtoH (Device -> Pinned)", "copy", 11 * ms, 13 * ms)]
+    ctx = cell.RunContext(None, 12.0, 1.0, r)
+    assert read(ctx) == pytest.approx(100.0 * 0.003 / 0.006)
+    # the share of all kernels is another number
+    assert spec.metric_reader("kernels_roofline")(ctx) == pytest.approx(
+        100.0 * 0.004 / 0.010)
+    # no B2 work (LOW_QUALITY), or no B2 launch read: nothing
+    r.b2_least_s = 0.0
+    assert read(ctx) is None
+    r.b2_least_s = 0.003
+    r.device_ops = [o for o in r.device_ops if "solve_borders" not in o[0]]
+    assert read(ctx) is None
+
+
+def test_a_traced_reading_counts_b2s_work():
+    """A traced run hands the readers the least time of every dispatched
+    batch's work, and beside it that of B2's own share."""
+    from benchmark.harness.drive import Batch, LoopRecord
+
+    class HostOnly:
+        traced, on_card, prof = True, False, None
+
+    pool = [_photo(64, 48, (2, 2)), _photo(40, 32, (2, 2))]
+    rec = LoopRecord(t0=0.0, t_end=1.0)
+    rec.done = [Batch(0, [0, 1], 0.0, 0.0, 0.0, 1.0)]
+    rec.drained = [Batch(1, [1, 1], 0.0, 0.0, 1.0, 1.5)]
+    for q in (3, 6, 0):
+        flags = tables.quality_to_flags(q)
+        r = cell._reading(rec, HostOnly(), pool, {"quality": q, "niter": 3})
+        least = lambda work: roofline.least_seconds(*map(sum, zip(*(
+            work(pool[i], flags, 3) for i in (0, 1, 1, 1)))))
+        assert r.least_s == least(roofline.image_work)
+        assert r.b2_least_s == least(roofline.b2_work)
+        assert (r.b2_least_s > 0) == (q != 0)
+        assert r.b2_least_s <= r.least_s
 
 
 def test_end_to_end_readers():
@@ -232,7 +334,7 @@ def _run(args, cwd, env_extra=None):
 
 
 def test_run_fails_without_a_card():
-    r = _run(["benchmark/run.py", "--workload", "photo12mp-q6.batch16",
+    r = _run(["benchmark/run.py", "--workload", CELLS[0],
               "--seed", str(2 ** 31 + 5), "--seconds", "1", "--trace",
               "0"], spec.ROOT)
     assert r.returncode != 0 and r.stdout == ""
@@ -244,7 +346,7 @@ def test_run_fails_without_the_program(tmp_path):
     for p in BENCH["paths"]:
         shutil.copytree(os.path.join(spec.ROOT, p), tmp_path / p,
                         ignore=shutil.ignore_patterns("__pycache__"))
-    r = _run(["benchmark/run.py", "--workload", "photo12mp-q6.batch16",
+    r = _run(["benchmark/run.py", "--workload", CELLS[0],
               "--seed", "3", "--seconds", "1", "--trace", "0"],
              str(tmp_path), {"PYTHONPATH": ""})
     assert r.returncode != 0 and r.stdout == ""
@@ -258,7 +360,7 @@ def test_a_cpu_run_loads_no_jax():
         "import sys, time, json\n"
         "from benchmark.harness import cell, spec\n"
         "b = spec.load_benchmark()\n"
-        "wl = spec.workload(b, 'photo12mp-q6.batch16')\n"
+        f"wl = spec.workload(b, {CELLS[0]!r})\n"
         "out = cell.run_cell(b, wl, 11, 0.0, True, 'cpu', "
         "time.perf_counter(), overrides=dict(image_wh='24x16', "
         "pool_images=2, batch_images=2, window=1, check_batches=1), "
